@@ -1,9 +1,12 @@
 """Command-line interface: `python -m colmap_pcd_tpu_torch <command> [--flags]`.
 
 Port of colmap_pcd_tpu/cli.py. Flags use the reference's namespaced names
-(--Mapper.init_image_x, ..., utils/config.py). `mapper` is the only command
-ported so far (the lidar path); every other command of the JAX package's
-registry reports that it is not yet ported and returns 1.
+(--Mapper.init_image_x, --SiftMatching.max_ratio, ..., utils/config.py).
+Ported: `mapper` (lidar-seeded or classic two-view init) and the matchers
+`exhaustive_matcher`, `sequential_matcher`, `transitive_matcher` and
+`matches_importer`. Every other command of the JAX package's registry
+reports that it is not yet ported and returns 1. Matching and mapping run
+on CUDA when present, else on the CPU.
 """
 
 from __future__ import annotations
@@ -14,11 +17,10 @@ import numpy as np
 
 from .utils.config import OptionManager
 
-# the JAX package's command registry; only "mapper" runs in this port
+# the rest of the JAX package's command registry
 _NOT_PORTED = (
-    "feature_extractor", "exhaustive_matcher", "sequential_matcher",
-    "transitive_matcher", "vocab_tree_matcher", "spatial_matcher",
-    "vocab_tree_builder", "vocab_tree_retriever", "matches_importer",
+    "feature_extractor", "vocab_tree_matcher", "spatial_matcher",
+    "vocab_tree_builder", "vocab_tree_retriever",
     "hierarchical_mapper", "point_triangulator", "bundle_adjuster",
     "rig_bundle_adjuster", "model_converter", "model_analyzer",
     "model_transformer", "model_aligner", "model_merger", "model_cropper",
@@ -134,7 +136,9 @@ def _mapper_options(om):
 
 def cmd_mapper(argv):
     """Incremental mapping from a database (+ lidar map + pose priors) to a
-    COLMAP model. The device is CUDA when present, else the CPU."""
+    COLMAP model: lidar-seeded init with --Mapper.lidar_pointcloud_path,
+    classic two-view init without. The device is CUDA when present, else
+    the CPU."""
     input_path, output_path = None, None
     filtered = []
     it = iter(argv)
@@ -151,13 +155,6 @@ def cmd_mapper(argv):
 
     dev = device_mod.resolve()
     rec, graph, lmap, priors = _load_mapper_inputs(om, input_path, dev)
-    if not (om.mapper.if_add_lidar_constraint and lmap is not None):
-        print(
-            "mapper: only the lidar path is ported; pass "
-            "--Mapper.lidar_pointcloud_path (classic init: see ROADMAP.md)",
-            file=sys.stderr,
-        )
-        return 1
     copts = ControllerOptions(
         min_num_matches=om.mapper.min_num_matches,
         multiple_models=om.mapper.multiple_models,
@@ -180,7 +177,87 @@ def cmd_mapper(argv):
     return 0 if manager.size() > 0 else 1
 
 
-COMMANDS = {"mapper": cmd_mapper}
+def cmd_exhaustive_matcher(argv):
+    om, _ = _opt(argv)
+    from .models.feature_pipeline import run_exhaustive_matcher
+
+    n = run_exhaustive_matcher(om.database_path, om.sift_matching)
+    print(f"Verified {n} image pairs")
+    return 0
+
+
+def cmd_sequential_matcher(argv):
+    """Sequential matching with the JAX CLI's quadratic overlap (pairs d
+    and 2^d apart for d <= overlap)."""
+    om, _ = _opt([a for a in argv if not a.startswith("--Sequential")])
+    overlap = 10
+    loop = False
+    it = iter(argv)
+    for a in it:
+        if a == "--SequentialMatching.overlap":
+            overlap = int(next(it))
+        elif a == "--SequentialMatching.loop_detection":
+            loop = next(it).lower() in ("1", "true")
+    from .models.feature_pipeline import run_sequential_matcher
+
+    n = run_sequential_matcher(om.database_path, om.sift_matching, overlap=overlap,
+                               loop_detection=loop)
+    print(f"Verified {n} image pairs")
+    return 0
+
+
+def cmd_transitive_matcher(argv):
+    om, _ = _opt(argv)
+    from .models.feature_pipeline import run_transitive_matcher
+
+    n = run_transitive_matcher(om.database_path, om.sift_matching)
+    print(f"Verified {n} transitive pairs")
+    return 0
+
+
+def cmd_matches_importer(argv):
+    """--match_type pairs (a list of image-name pairs to match), raw
+    (feature-index matches to verify) or inliers (imported as verified)."""
+    match_list = None
+    match_type = "pairs"
+    it = iter(argv)
+    filtered = []
+    for a in it:
+        if a == "--match_list_path":
+            match_list = next(it)
+        elif a == "--match_type":
+            match_type = next(it)
+        else:
+            filtered.append(a)
+    om, _ = _opt(filtered)
+    if match_type in ("raw", "inliers"):
+        from .models.feature_pipeline import run_feature_pairs_importer
+
+        n = run_feature_pairs_importer(
+            om.database_path, match_list, om.sift_matching, verify=match_type == "raw"
+        )
+        print(f"Imported {n} feature-pair blocks")
+        return 0
+    pairs = []
+    with open(match_list) as f:
+        for line in f:
+            tok = line.split()
+            if len(tok) >= 2:
+                pairs.append((tok[0], tok[1]))
+    from .models.feature_pipeline import run_image_pairs_matcher
+
+    n = run_image_pairs_matcher(om.database_path, pairs, om.sift_matching)
+    print(f"Verified {n} imported pairs")
+    return 0
+
+
+COMMANDS = {
+    "mapper": cmd_mapper,
+    "exhaustive_matcher": cmd_exhaustive_matcher,
+    "sequential_matcher": cmd_sequential_matcher,
+    "transitive_matcher": cmd_transitive_matcher,
+    "matches_importer": cmd_matches_importer,
+}
 
 
 def main(argv=None):

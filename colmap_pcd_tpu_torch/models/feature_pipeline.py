@@ -1,0 +1,462 @@
+"""Feature matching controllers over the database.
+
+Port of the matching half of colmap_pcd_tpu/models/feature_pipeline.py
+(parity with src/feature/matching.{h,cc}, the matcher controller family):
+each controller enumerates candidate pairs its own way, then a shared
+worker matches descriptors (through the hand-written top-2 kernel K1 on a
+CUDA device), verifies two-view geometry with the batched E/F/H LO-RANSAC
+banks, optionally re-matches guided by F, and writes `matches` and
+`two_view_geometries`.
+
+Ported: exhaustive, sequential, transitive, image-pairs and feature-pairs
+(raw / inlier match import). Not ported yet (ROADMAP.md queue 1): SIFT
+extraction (`run_feature_extractor` raises), the spatial matcher,
+retrieval (the vocab-tree matcher, and the sequential matcher's loop
+detection, which raises). `use_pallas` is accepted and has no effect: on
+a CUDA device K1 is the matcher.
+"""
+
+from __future__ import annotations
+
+import threading
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
+
+import numpy as np
+import torch
+
+from .. import device as device_mod
+from ..ops import camera_models as cm
+from ..ops import matching as matching_ops
+from ..ops import np_geom
+from ..utils.config import SiftMatchingConfig
+from . import two_view as two_view_mod
+from .database import Database
+
+
+def run_feature_extractor(*args, **kwargs) -> int:
+    """SIFT extraction (RunFeatureExtractor) is not ported yet."""
+    raise NotImplementedError(
+        "SIFT extraction is not ported to the PyTorch package yet: ROADMAP.md queue 1 step 5"
+    )
+
+
+class _MatchWorker:
+    """Shared per-pair matcher + verifier + writer.
+
+    A chunked pipeline: every chunk of pairs passes through
+        prepare (host: SQLite reads + padding, caller thread)
+      -> match  (device: one batched top-2 bank over the chunk + one fetch)
+      -> assemble (host: match extraction, E/F/H item build)
+      -> verify (device: one batched E/F/H + pose bank + one fetch)
+      -> classify (host) -> SQLite writes (caller thread, in order).
+    Chunks run on a 2-thread pool, so one chunk's host stages overlap the
+    other's device work (the reference's matcher/verifier worker pool,
+    feature/matching.h:222-345, as pipeline stages around batched device
+    work). Only the caller thread touches SQLite."""
+
+    def __init__(self, db: Database, config: SiftMatchingConfig, device=None):
+        self.db = db
+        self.cfg = config
+        self.device = device_mod.resolve(device)
+        self._host_cache: dict[int, tuple[np.ndarray, np.ndarray, np.ndarray, int]] = {}
+        self._dev_cache: dict[int, torch.Tensor] = {}
+        self._dev_lock = threading.Lock()
+        self.cameras = db.cameras()
+        self.images = db.images()
+        if self.device.type == "cuda":
+            # load PyTorch's CUDA linear-algebra library on this thread: its
+            # lazy loader raises when the pool's two threads race to it
+            torch.linalg.eigh(torch.eye(2, device=self.device))
+
+    # ------------------------------------------------------------ features
+    def _feats_host(self, image_id: int):
+        """(kp_p, d_u8, v, N) host arrays padded to a power of two >= 64
+        (FeatureMatcherCache parity). Caller thread only (SQLite)."""
+        if image_id not in self._host_cache:
+            kp = self.db.read_keypoints(image_id)
+            desc = self.db.read_descriptors(image_id)
+            N = desc.shape[0]
+            cap = 1 << max(6, int(np.ceil(np.log2(max(N, 1)))))
+            kp_p = np.zeros((cap, 6), np.float32)
+            kp_p[:N] = kp
+            d_u8 = np.zeros((cap, desc.shape[1] if desc.size else 128), np.uint8)
+            if N:
+                d_u8[:N] = desc
+            v = np.zeros(cap, np.float32)
+            v[:N] = 1.0
+            if len(self._host_cache) > 200:  # LRU-ish cap
+                self._host_cache.pop(next(iter(self._host_cache)))
+            self._host_cache[image_id] = (kp_p, d_u8, v, N)
+        return self._host_cache[image_id]
+
+    def _feats_dev(self, image_id: int, d_u8: np.ndarray) -> torch.Tensor:
+        """Device-resident normalized descriptors (padding rows normalize to
+        zero): one uint8 upload per image, normalized on the device."""
+        with self._dev_lock:
+            d = self._dev_cache.get(image_id)
+        if d is None:
+            d = matching_ops.normalize_descriptors(torch.as_tensor(d_u8, device=self.device))
+            with self._dev_lock:
+                if len(self._dev_cache) > 200:
+                    self._dev_cache.pop(next(iter(self._dev_cache)))
+                self._dev_cache[image_id] = d
+        return d
+
+    def _mopts(self) -> matching_ops.MatchingOptions:
+        return matching_ops.MatchingOptions(
+            max_ratio=self.cfg.max_ratio,
+            max_distance=self.cfg.max_distance,
+            cross_check=self.cfg.cross_check,
+            guided_max_error=self.cfg.max_error,
+        )
+
+    def _tv_opts(self):
+        return two_view_mod.TwoViewOptions(
+            max_error=self.cfg.max_error,
+            min_num_inliers=self.cfg.min_num_inliers,
+            num_hypotheses=self.cfg.num_hypotheses,
+        )
+
+    # ------------------------------------------------------- pipeline stages
+    def _prep(self, pairs):
+        """Host (caller thread): pull host features, decide the chunk cap."""
+        hfeats = [(self._feats_host(i), self._feats_host(j)) for i, j in pairs]
+        cap = max(max(f1[1].shape[0], f2[1].shape[0]) for f1, f2 in hfeats)
+        degenerate = all(f1[3] == 0 or f2[3] == 0 for f1, f2 in hfeats)
+        return dict(pairs=list(pairs), hfeats=hfeats, cap=cap, degenerate=degenerate)
+
+    def _dev_match(self, prep):
+        """Device: upload missing descriptors, match the whole chunk as one
+        [B, cap, 128] bank, fetch (idx, ok, sim) once."""
+        cap = prep["cap"]
+        d1s, v1s, d2s, v2s = [], [], [], []
+        for (i, j), (f1, f2) in zip(prep["pairs"], prep["hfeats"]):
+            for iid, f, ds, vs in ((i, f1, d1s, v1s), (j, f2, d2s, v2s)):
+                d = self._feats_dev(iid, f[1])
+                ds.append(torch.nn.functional.pad(d, (0, 0, 0, cap - d.shape[0])))
+                vs.append(np.pad(f[2], (0, cap - f[2].shape[0])))
+        dev = self.device
+        idx, ok, sim = matching_ops.match_descriptors(
+            torch.stack(d1s), torch.stack(d2s),
+            torch.as_tensor(np.stack(v1s), device=dev), torch.as_tensor(np.stack(v2s), device=dev),
+            self._mopts(),
+        )
+        return idx.cpu().numpy(), ok.cpu().numpy(), sim.cpu().numpy()
+
+    def _assemble_pure(self, prep, fetched):
+        """Host: extract per-pair matches, build the E/F/H items. Returns
+        (asm | None, match_writes)."""
+        idx_b, ok_b, sim_b = fetched
+        items, meta, match_writes = [], [], []
+        for b, (id1, id2) in enumerate(prep["pairs"]):
+            rows = np.nonzero(ok_b[b])[0]
+            mpairs = np.stack([rows, idx_b[b][rows]], axis=-1).astype(np.int32)
+            if len(mpairs) < self.cfg.min_num_inliers:
+                match_writes.append((id1, id2, np.zeros((0, 2), np.uint32)))
+                continue
+            match_writes.append((id1, id2, mpairs))
+            kp1 = prep["hfeats"][b][0][0]
+            kp2 = prep["hfeats"][b][1][0]
+            cam1 = self.cameras[self.images[id1]["camera_id"]]
+            cam2 = self.cameras[self.images[id2]["camera_id"]]
+            items.append(dict(
+                uv1=kp1[mpairs[:, 0], :2],
+                uv2=kp2[mpairs[:, 1], :2],
+                params1=np_geom.pad_params(
+                    cam1["params"][: cm.NUM_PARAMS[cam1["model_id"]]], cam1["model_id"]
+                ),
+                params2=np_geom.pad_params(
+                    cam2["params"][: cm.NUM_PARAMS[cam2["model_id"]]], cam2["model_id"]
+                ),
+                model_id1=cam1["model_id"],
+                model_id2=cam2["model_id"],
+                size1=(cam1["width"], cam1["height"]),
+                size2=(cam2["width"], cam2["height"]),
+                quality=sim_b[b][mpairs[:, 0]],
+            ))
+            meta.append((id1, id2, mpairs))
+        if not items:
+            return None, match_writes
+        return dict(items=items, meta=meta), match_writes
+
+    def _dev_verify(self, asm):
+        """Device: the fused E/F/H + pose bank over the chunk, fetched once."""
+        outputs, ctx = two_view_mod.two_view_verify_dispatch(asm["items"], self._tv_opts(), self.device)
+        return two_view_mod.fetch(outputs), ctx
+
+    def _classify_pure(self, asm, vctx, vfetched):
+        """Host: configuration classification. Returns (geom_writes, n_ok)
+        with geom_writes rows (id1, id2, inliers, geom)."""
+        geoms = two_view_mod.two_view_verify_classify(vfetched, vctx, asm["items"], self._tv_opts())
+        n_ok = 0
+        geom_writes = []
+        for (id1, id2, mpairs), g in zip(asm["meta"], geoms):
+            rows = g.inlier_matches[:, 0] if len(g.inlier_matches) else np.zeros(0, np.int64)
+            inliers = mpairs[rows] if len(rows) else np.zeros((0, 2), np.uint32)
+            geom_writes.append((id1, id2, inliers, g))
+            if len(inliers) >= self.cfg.min_num_inliers:
+                n_ok += 1
+        return geom_writes, n_ok
+
+    def _process_chunk(self, prep):
+        """One chunk through match -> assemble -> verify -> classify; touches
+        no SQLite. Returns (match_writes, geom_writes, n_ok) for the caller
+        to flush in submission order."""
+        if prep["degenerate"]:
+            return [(i, j, np.zeros((0, 2), np.uint32)) for i, j in prep["pairs"]], [], 0
+        asm, match_writes = self._assemble_pure(prep, self._dev_match(prep))
+        if asm is None:
+            return match_writes, [], 0
+        vfetched, vctx = self._dev_verify(asm)
+        geom_writes, n_ok = self._classify_pure(asm, vctx, vfetched)
+        return match_writes, geom_writes, n_ok
+
+    def match_pairs(self, pair_list, chunk: int = 16) -> int:
+        """Pipelined batched pair matching + verification (see the class
+        doc). Returns the number of pairs with a verified geometry."""
+        if self.cfg.guided_matching:
+            return sum(1 if self.match_pair(i, j) else 0 for i, j in pair_list)
+        n_ok = 0
+
+        def flush(fut):
+            nonlocal n_ok
+            match_writes, geom_writes, ok = fut.result()
+            for id1, id2, mpairs in match_writes:
+                self.db.write_matches(id1, id2, mpairs)
+            for id1, id2, inliers, g in geom_writes:
+                self.db.write_two_view_geometry(
+                    id1, id2, inliers, g.config, F=g.F, E=g.E, H=g.H, qvec=g.qvec, tvec=g.tvec,
+                )
+            self.db.commit()
+            n_ok += ok
+
+        window: deque = deque()
+        with ThreadPoolExecutor(max_workers=2) as pool:
+            for c0 in range(0, len(pair_list), chunk):
+                prep = self._prep(pair_list[c0 : c0 + chunk])  # caller thread: SQLite reads
+                window.append(pool.submit(self._process_chunk, prep))
+                while len(window) > 2:
+                    flush(window.popleft())
+            while window:
+                flush(window.popleft())
+        return n_ok
+
+    def match_pair(self, id1: int, id2: int) -> int:
+        """Match + verify (+ guided re-match) + write one pair. Returns the
+        inlier count."""
+        kp1, d1_u8, v1, n1 = self._feats_host(id1)
+        kp2, d2_u8, v2, n2 = self._feats_host(id2)
+        if n1 == 0 or n2 == 0:
+            return 0
+        dev = self.device
+        d1, d2 = self._feats_dev(id1, d1_u8), self._feats_dev(id2, d2_u8)
+        v1t, v2t = torch.as_tensor(v1, device=dev), torch.as_tensor(v2, device=dev)
+        mopts = self._mopts()
+        idx, ok, sim1 = matching_ops.match_descriptors(d1, d2, v1t, v2t, mopts)
+        pairs = matching_ops.matches_to_pairs(idx, ok)
+        if len(pairs) < self.cfg.min_num_inliers:
+            self.db.write_matches(id1, id2, np.zeros((0, 2), np.uint32))
+            return 0
+        self.db.write_matches(id1, id2, pairs)
+
+        cam1 = self.cameras[self.images[id1]["camera_id"]]
+        cam2 = self.cameras[self.images[id2]["camera_id"]]
+        g = two_view_mod.estimate_two_view_geometry(
+            kp1[pairs[:, 0], :2], kp2[pairs[:, 1], :2],
+            np_geom.pad_params(cam1["params"][: cm.NUM_PARAMS[cam1["model_id"]]], cam1["model_id"]),
+            np_geom.pad_params(cam2["params"][: cm.NUM_PARAMS[cam2["model_id"]]], cam2["model_id"]),
+            cam1["model_id"], cam2["model_id"],
+            two_view_mod.TwoViewOptions(
+                max_error=self.cfg.max_error, min_num_inliers=self.cfg.min_num_inliers,
+            ),
+            quality=sim1.cpu().numpy()[pairs[:, 0]],
+            device=dev,
+        )
+        inlier_rows = g.inlier_matches[:, 0] if len(g.inlier_matches) else np.zeros(0, np.int64)
+
+        if self.cfg.guided_matching and g.F is not None and len(inlier_rows) >= self.cfg.min_num_inliers:
+            gi, gok = matching_ops.match_guided(
+                d1, d2,
+                torch.as_tensor(kp1[:, :2], device=dev), torch.as_tensor(kp2[:, :2], device=dev),
+                v1t, v2t, torch.as_tensor(g.F, dtype=torch.float32, device=dev), mopts,
+            )
+            gpairs = matching_ops.matches_to_pairs(gi, gok)
+            if len(gpairs) > len(inlier_rows):
+                self.db.write_two_view_geometry(
+                    id1, id2, gpairs, g.config, F=g.F, E=g.E, H=g.H, qvec=g.qvec, tvec=g.tvec,
+                )
+                self.db.commit()
+                return len(gpairs)
+
+        inliers = pairs[inlier_rows] if len(inlier_rows) else np.zeros((0, 2), np.uint32)
+        self.db.write_two_view_geometry(
+            id1, id2, inliers, g.config, F=g.F, E=g.E, H=g.H, qvec=g.qvec, tvec=g.tvec
+        )
+        self.db.commit()
+        return len(inliers)
+
+
+def run_exhaustive_matcher(
+    database_path: str,
+    config: SiftMatchingConfig = SiftMatchingConfig(),
+    block_size: int = 50,
+    device=None,
+) -> int:
+    """All-pairs matching in blocks (ExhaustiveFeatureMatcher,
+    matching.h:401)."""
+    db = Database(database_path)
+    w = _MatchWorker(db, config, device)
+    ids = sorted(db.images().keys())
+    pair_list = []
+    for bi in range(0, len(ids), block_size):
+        for bj in range(bi, len(ids), block_size):
+            for i in ids[bi : bi + block_size]:
+                for j in ids[bj : bj + block_size]:
+                    if j > i:
+                        pair_list.append((i, j))
+    n = w.match_pairs(pair_list)
+    db.close()
+    return n
+
+
+def sequential_pair_list(ids: list[int], overlap: int, quadratic_overlap: bool):
+    """Deduped sequential pair list (SequentialFeatureMatcher pair policy)."""
+    seen: set[tuple[int, int]] = set()
+    pair_list: list[tuple[int, int]] = []
+    for a, i in enumerate(ids):
+        for d in range(1, overlap + 1):
+            offsets = [d, (1 << d)] if quadratic_overlap else [d]
+            for off in offsets:
+                b = a + off
+                if b < len(ids) and (i, ids[b]) not in seen:
+                    seen.add((i, ids[b]))
+                    pair_list.append((i, ids[b]))
+    return pair_list
+
+
+def run_sequential_matcher(
+    database_path: str,
+    config: SiftMatchingConfig = SiftMatchingConfig(),
+    overlap: int = 10,
+    quadratic_overlap: bool = True,
+    loop_detection: bool = False,
+    device=None,
+) -> int:
+    """Consecutive-pair matching (SequentialFeatureMatcher, matching.h:434).
+    Retrieval loop closure (loop_detection) is not ported yet."""
+    if loop_detection:
+        raise NotImplementedError(
+            "sequential matcher loop detection needs retrieval (ops/retrieval), "
+            "not ported yet: ROADMAP.md queue 1 step 8"
+        )
+    db = Database(database_path)
+    w = _MatchWorker(db, config, device)
+    ids = sorted(db.images().keys())  # name-ordered assumed == id order
+    n = w.match_pairs(sequential_pair_list(ids, overlap, quadratic_overlap))
+    db.close()
+    return n
+
+
+def run_transitive_matcher(
+    database_path: str,
+    config: SiftMatchingConfig = SiftMatchingConfig(),
+    batch_size: int = 1000,
+    num_iterations: int = 3,
+    device=None,
+) -> int:
+    """Close the match graph transitively (TransitiveFeatureMatcher,
+    matching.h:513): if A-B and B-C matched, try A-C."""
+    db = Database(database_path)
+    w = _MatchWorker(db, config, device)
+    n = 0
+    for _ in range(num_iterations):
+        have = set()
+        adj: dict[int, set[int]] = {}
+        for i, j in db.all_two_view_pair_ids():
+            adj.setdefault(i, set()).add(j)
+            adj.setdefault(j, set()).add(i)
+            have.add((min(i, j), max(i, j)))
+        todo = []
+        for nbrs in adj.values():
+            for a in nbrs:
+                for c in nbrs:
+                    if a < c and (a, c) not in have:
+                        todo.append((a, c))
+                        have.add((a, c))
+        if not todo:
+            break
+        n += w.match_pairs(todo[:batch_size])
+    db.close()
+    return n
+
+
+def run_image_pairs_matcher(
+    database_path: str,
+    pairs: list[tuple[str, str]],
+    config: SiftMatchingConfig = SiftMatchingConfig(),
+    device=None,
+) -> int:
+    """Match an explicit list of image-name pairs (ImagePairsFeatureMatcher)."""
+    db = Database(database_path)
+    w = _MatchWorker(db, config, device)
+    by_name = {v["name"]: k for k, v in db.images().items()}
+    pair_list = []
+    for n1, n2 in pairs:
+        if n1 in by_name and n2 in by_name:
+            i, j = by_name[n1], by_name[n2]
+            if i != j and (min(i, j), max(i, j)) not in pair_list:
+                pair_list.append((min(i, j), max(i, j)))
+    n = w.match_pairs(pair_list)
+    db.close()
+    return n
+
+
+def run_feature_pairs_importer(
+    database_path: str,
+    pairs_file: str,
+    config: SiftMatchingConfig = SiftMatchingConfig(),
+    verify: bool = True,
+    device=None,
+) -> int:
+    """Import raw feature-index matches from a text file
+    (FeaturePairsFeatureMatcher, matching.h:538): blocks of 'name1 name2'
+    followed by 'idx1 idx2' lines, blank-line separated. With verify=True
+    the imported matches get two-view verification."""
+    db = Database(database_path)
+    by_name = {v["name"]: k for k, v in db.images().items()}
+    w = _MatchWorker(db, config, device)
+    n = 0
+    with open(pairs_file) as f:
+        blocks = f.read().split("\n\n")
+    for block in blocks:
+        lines = [ln for ln in block.splitlines() if ln.strip()]
+        if not lines:
+            continue
+        n1, n2 = lines[0].split()[:2]
+        if n1 not in by_name or n2 not in by_name:
+            continue
+        id1, id2 = by_name[n1], by_name[n2]
+        m = np.asarray(
+            [[int(a), int(b)] for a, b in (ln.split()[:2] for ln in lines[1:])], np.uint32,
+        ).reshape(-1, 2)
+        db.write_matches(id1, id2, m)
+        if verify and len(m) >= config.min_num_inliers:
+            kp1 = w._feats_host(id1)[0]
+            kp2 = w._feats_host(id2)[0]
+            cam1 = w.cameras[w.images[id1]["camera_id"]]
+            cam2 = w.cameras[w.images[id2]["camera_id"]]
+            g = two_view_mod.estimate_two_view_geometry(
+                kp1[m[:, 0], :2], kp2[m[:, 1], :2],
+                np_geom.pad_params(cam1["params"][: cm.NUM_PARAMS[cam1["model_id"]]], cam1["model_id"]),
+                np_geom.pad_params(cam2["params"][: cm.NUM_PARAMS[cam2["model_id"]]], cam2["model_id"]),
+                cam1["model_id"], cam2["model_id"], device=w.device,
+            )
+            inl = m[g.inlier_matches[:, 0]] if len(g.inlier_matches) else np.zeros((0, 2), np.uint32)
+            db.write_two_view_geometry(id1, id2, inl, g.config, F=g.F, E=g.E, H=g.H)
+        else:
+            db.write_two_view_geometry(id1, id2, m, two_view_mod.CALIBRATED)
+        db.commit()
+        n += 1
+    db.close()
+    return n

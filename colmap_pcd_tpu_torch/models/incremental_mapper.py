@@ -6,8 +6,8 @@ Parity re-design of src/sfm/incremental_mapper.{h,cc} (2,358 LoC):
     incremental_mapper.cc:489-693): image1 pose from init options / pose
     prior, features ray-plane intersected with the map, image2 by PnP,
     3D points created at lidar depths.
-  * classic two-view initialization (RegisterInitialImagePair, :391) —
-    not ported yet: it raises NotImplementedError.
+  * classic two-view initialization (RegisterInitialImagePair, :391):
+    relative pose from the essential matrix of models/two_view.
   * next-image selection by visible triangulated correspondences
     (FindNextImages, :299 — visibility-pyramid score simplified to
     visible-point count).
@@ -171,6 +171,9 @@ class IncrementalMapper:
         self.init_image_pairs: set[tuple[int, int]] = set()
         self.init_num_reg_trials: dict[int, int] = {}
         self.num_registrations: dict[int, int] = {}
+        # the last init pair verified by estimate_initial_two_view_geometry
+        self._prev_init_pair: tuple[int, int] | None = None
+        self._prev_init_geometry = None
         # incremental next-image scoring (visibility pyramid bookkeeping)
         self.visibility = VisibilityIndex(rec, graph)
         # the most recently registered image (center of the spherical global
@@ -522,13 +525,84 @@ class IncrementalMapper:
         self._refine_pose(image_id2, opts)
         return True
 
-    def register_initial_image_pair(self, opts: MapperOptions, image_id1: int, image_id2: int) -> bool:
-        """Classic two-view init (RegisterInitialImagePair, :391) needs the
-        two-view geometry solvers of the matching slice."""
-        raise NotImplementedError(
-            "classic (lidar-free) initialization is not ported yet: it needs "
-            "models/two_view and the E/F/H solvers (ROADMAP.md queue 1)"
+    def _two_view_geometry(self, opts: MapperOptions, image_id1: int, image_id2: int, matches,
+                           watermark: bool):
+        """Two-view geometry of an init candidate on the mapper's device;
+        the watermark test needs the image sizes, which only the
+        verification of a candidate passes (as in the JAX package)."""
+        from . import two_view
+
+        img1, img2 = self.rec.images[image_id1], self.rec.images[image_id2]
+        cam1, cam2 = self._camera_of(image_id1), self._camera_of(image_id2)
+        return two_view.estimate_two_view_geometry(
+            img1.xys[matches[:, 0]].astype(np.float32),
+            img2.xys[matches[:, 1]].astype(np.float32),
+            cam1.padded_params(), cam2.padded_params(),
+            cam1.model_id, cam2.model_id,
+            two_view.TwoViewOptions(max_error=opts.init_max_error),
+            size1=(cam1.width, cam1.height) if watermark else None,
+            size2=(cam2.width, cam2.height) if watermark else None,
+            device=self.device,
         )
+
+    def register_initial_image_pair(self, opts: MapperOptions, image_id1: int, image_id2: int) -> bool:
+        """Classic two-view init (RegisterInitialImagePair, :391): relative
+        pose from the essential matrix, triangulate, |t|=1 gauge."""
+        from . import two_view
+
+        assert self.rec.num_reg_images == 0
+        img1, img2 = self.rec.images[image_id1], self.rec.images[image_id2]
+        cam1, cam2 = self._camera_of(image_id1), self._camera_of(image_id2)
+        matches = self.graph.matches_between(image_id1, image_id2)
+        if len(matches) < opts.init_min_num_inliers:
+            return False
+        self.init_num_reg_trials[image_id1] = self.init_num_reg_trials.get(image_id1, 0) + 1
+        self.init_num_reg_trials[image_id2] = self.init_num_reg_trials.get(image_id2, 0) + 1
+        key = (min(image_id1, image_id2), max(image_id1, image_id2))
+        if self._prev_init_pair == key and self._prev_init_geometry is not None:
+            # verified by find_initial_image_pair (:418 reuses the cache)
+            g = self._prev_init_geometry
+        else:
+            g = self._two_view_geometry(opts, image_id1, image_id2, matches, watermark=False)
+            if g.config != two_view.CALIBRATED or g.qvec is None:
+                return False
+            if len(g.inlier_matches) < opts.init_min_num_inliers:
+                return False
+            if g.tri_angle < math.radians(opts.init_min_tri_angle) / 4:
+                return False
+        img1.qvec = np.asarray([1.0, 0, 0, 0])
+        img1.tvec = np.zeros(3)
+        img2.qvec = np.asarray(g.qvec, np.float64)
+        img2.tvec = np.asarray(g.tvec, np.float64)
+        self.rec.bump_pose(image_id1)
+        self.rec.bump_pose(image_id2)
+        self._register_image_event(image_id1)
+        self._register_image_event(image_id2)
+        self.last_registered_id = image_id2
+        # triangulate the inliers (host, float64 SVD per point)
+        rows = g.inlier_matches[:, 0]
+        n1 = np_geom.image_to_world(cam1.model_id, cam1.padded_params(), img1.xys[matches[rows, 0]])
+        n2 = np_geom.image_to_world(cam2.model_id, cam2.padded_params(), img2.xys[matches[rows, 1]])
+        P1 = np.concatenate([np_geom.quat_to_rotmat(img1.qvec), np.asarray(img1.tvec)[:, None]], axis=1)
+        P2 = np.concatenate([np_geom.quat_to_rotmat(img2.qvec), np.asarray(img2.tvec)[:, None]], axis=1)
+        rows4 = np.stack([
+            n1[:, 0, None] * P1[2] - P1[0],
+            n1[:, 1, None] * P1[2] - P1[1],
+            n2[:, 0, None] * P2[2] - P2[0],
+            n2[:, 1, None] * P2[2] - P2[1],
+        ], axis=1)  # [N,4,4]
+        _, _, vt = np.linalg.svd(rows4)
+        Xh = vt[:, 3, :]
+        w = np.where(np.abs(Xh[:, 3]) < 1e-12, 1e-12, Xh[:, 3])
+        X = Xh[:, :3] / w[:, None]
+        z1 = X[:, 2]  # cam1 at identity
+        X2c = np_geom.se3_apply(img2.qvec, img2.tvec, X)
+        good = (z1 > 0) & (X2c[:, 2] > 0) & np.isfinite(X).all(axis=1)
+        for k in np.nonzero(good)[0]:
+            f1, f2 = int(matches[rows[k], 0]), int(matches[rows[k], 1])
+            if img1.point3D_ids[f1] == INVALID_POINT3D and img2.point3D_ids[f2] == INVALID_POINT3D:
+                self.rec.add_point3D(X[k], [(image_id1, f1), (image_id2, f2)])
+        return True
 
     # ------------------------------------------- multi-model lifecycle
     def begin_reconstruction(self, rec: Reconstruction):
@@ -614,12 +688,30 @@ class IncrementalMapper:
     def estimate_initial_two_view_geometry(
         self, opts: MapperOptions, image_id1: int, image_id2: int
     ) -> bool:
-        """Two-view verification of an init candidate
-        (EstimateInitialTwoViewGeometry, :1947-2003); waits for the
-        matching slice like register_initial_image_pair."""
-        raise NotImplementedError(
-            "two-view init verification is not ported yet (ROADMAP.md queue 1)"
-        )
+        """Verify an init candidate pair: enough two-view inliers, bounded
+        forward motion |t_z| < init_max_forward_motion, and sufficient
+        triangulation angle (EstimateInitialTwoViewGeometry, :1947-2003).
+        Caches the verified geometry for register_initial_image_pair."""
+        from . import two_view
+
+        key = (min(image_id1, image_id2), max(image_id1, image_id2))
+        if self._prev_init_pair == key and self._prev_init_geometry is not None:
+            return True
+        matches = self.graph.matches_between(image_id1, image_id2)
+        if len(matches) < opts.init_min_num_inliers:
+            return False
+        g = self._two_view_geometry(opts, image_id1, image_id2, matches, watermark=True)
+        if g.config != two_view.CALIBRATED or g.qvec is None:
+            return False
+        if len(g.inlier_matches) < opts.init_min_num_inliers:
+            return False
+        if abs(float(g.tvec[2])) >= opts.init_max_forward_motion:
+            return False
+        if g.tri_angle <= math.radians(opts.init_min_tri_angle):
+            return False
+        self._prev_init_pair = key
+        self._prev_init_geometry = g
+        return True
 
     def find_initial_image_pair(self, opts: MapperOptions) -> tuple[int, int]:
         """(FindInitialImagePair, :215-287): enumerate ranked (first, second)

@@ -4,37 +4,26 @@ kernel (csrc/nn_argmin.cu) and its plain PyTorch version.
 Replaces the Pallas TPU kernel `nn_argmin` (colmap_pcd_tpu/ops/
 pallas_kernels.py:175). `nn_argmin` launches the kernel for CUDA tensors and
 raises if it cannot; only CPU tensors take `nn_argmin_reference`. The kernel
-is compiled with nvcc for sm_90a into a plain-C shared library at its first
-launch (cached under colmap_pcd_tpu_torch/build/, keyed by a hash of the
-source) and bound with ctypes; importing this module needs no CUDA toolkit.
+is built at its first launch by ops/cuda_build.py; importing this module
+needs no CUDA toolkit.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
-import shutil
-import subprocess
 import threading
 
 import torch
 
+from .cuda_build import CSRC_DIR, build_library
+
 Tensor = torch.Tensor
 
-_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG_DIR, "csrc", "nn_argmin.cu")
-BUILD_DIR = os.path.join(_PKG_DIR, "build")
+SOURCE = os.path.join(CSRC_DIR, "nn_argmin.cu")
 
 _lock = threading.Lock()
 _lib = None
-
-
-def _nvcc() -> str:
-    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(nvcc):
-        raise RuntimeError("nvcc not found: the nn_argmin CUDA kernel cannot be built")
-    return nvcc
 
 
 def build() -> ctypes.CDLL:
@@ -43,27 +32,7 @@ def build() -> ctypes.CDLL:
     with _lock:
         if _lib is not None:
             return _lib
-        with open(SOURCE, "rb") as f:
-            digest = hashlib.sha256(f.read()).hexdigest()[:16]
-        so = os.path.join(BUILD_DIR, f"nn_argmin-{digest}.so")
-        if not os.path.exists(so):
-            os.makedirs(BUILD_DIR, exist_ok=True)
-            tmp = f"{so}.{os.getpid()}.tmp"
-            proc = subprocess.run(
-                [
-                    _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-                    "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-                    "-o", tmp, SOURCE,
-                ],
-                capture_output=True, text=True,
-            )
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed on {SOURCE}:\n{proc.stderr}")
-            # ptxas register / shared-memory / spill report beside the library
-            with open(so[: -len(".so")] + ".log", "w") as f:
-                f.write(proc.stderr)
-            os.replace(tmp, so)
-        lib = ctypes.CDLL(so)
+        lib = build_library(SOURCE)
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.nn_argmin_launch.argtypes = [vp, ci, vp, ci, ci, ci, vp, vp, vp, vp, vp]
         lib.nn_argmin_launch.restype = ci

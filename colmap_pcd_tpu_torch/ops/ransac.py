@@ -1,18 +1,23 @@
-"""Batched PnP RANSAC: the hypothesis bank as one batched solve, not a loop.
+"""Batched RANSAC: the hypothesis bank as one batched solve, not a loop.
 
-Port of the PnP part of colmap_pcd_tpu/ops/ransac.py (`_draw_samples`
-uniform branch :43-54, `_score`, `ransac_pnp` :90-217):
+Port of colmap_pcd_tpu/ops/ransac.py (`_draw_samples`, `_score`,
+`ransac_pnp`, and the two-view banks `_ransac_two_view`,
+`ransac_{fundamental,essential,homography}`):
 
-  1. draw H/4 minimal 3-point samples at once (uniform over the valid rows),
-  2. solve all of them with the batched P3P (up to 4 poses each),
+  1. draw the minimal samples at once (uniform over the valid rows, or
+     PROSAC-ordered when a per-row quality is given),
+  2. solve all of them with the batched minimal solver (P3P, 5-point,
+     7-point, 4-point DLT; several models per sample),
   3. score all H x N residuals in one pass (inlier count, then truncated
      residual as tie-break),
-  4. local optimization: EPnP refits on the best inlier set, a fixed number
-     of rounds, then an optional Cauchy-weighted Gauss-Newton pose polish.
+  4. local optimization: non-minimal refits on the best inlier set, a
+     fixed number of rounds (plus an optional Cauchy-GN polish for PnP).
 
-Randomness comes from an explicit `torch.Generator`; it cannot reproduce
-`jax.random`, so tests hand both implementations the same `sample_idx`.
-Nothing here waits for the device: the result stays on it.
+The two-view banks take leading batch dims [B, ...]: a block of image
+pairs is one bank, and only the sample draw loops over the pairs.
+Randomness comes from explicit `torch.Generator`s (one per pair); they
+cannot reproduce `jax.random`, so tests hand both implementations the same
+`sample_idx`. Nothing here waits for the device: the result stays on it.
 """
 
 from __future__ import annotations
@@ -33,20 +38,45 @@ class RansacOptions(NamedTuple):
     min_inlier_ratio: float = 0.0
 
 
-def _draw_samples(generator: torch.Generator, valid: Tensor, num: int, k: int) -> Tensor:
-    """[num, k] indices drawn uniformly, with replacement, from the rows
-    where valid > 0."""
-    w = (valid > 0).to(torch.float32)
-    return torch.multinomial(w, num * k, replacement=True, generator=generator).reshape(num, k)
+def _draw_samples(
+    generator: torch.Generator, valid: Tensor, num: int, k: int, quality: Tensor | None = None
+) -> Tensor:
+    """[num, k] indices drawn with replacement from the rows where valid > 0.
+
+    With a quality vector [N] (higher = better), sampling is progressive:
+    hypothesis i draws uniformly from the top-m_i valid rows by quality,
+    m_i ramping geometrically from 2k to all valid rows across the bank
+    (PROSAC semantics, optim/progressive_sampler.cc, batched). An item with
+    no valid row draws from all rows (its hypotheses are scored out)."""
+    ok = valid > 0
+    if quality is None:
+        w = ok.to(torch.float32)
+        w = torch.where(torch.any(ok), w, torch.ones_like(w))
+        return torch.multinomial(w, num * k, replacement=True, generator=generator).reshape(num, k)
+    # rank rows: best quality first (invalid rows last); stable like argsort
+    order = torch.argsort(torch.where(ok, -quality, torch.inf), stable=True)
+    rank = torch.argsort(order, stable=True)
+    n_valid = torch.clamp(torch.sum(ok).to(torch.float32), min=1.0)
+    i = torch.arange(num, dtype=torch.float32, device=valid.device) / max(num - 1, 1)
+    m = torch.minimum(torch.ceil(2.0 * k * (n_valid / (2.0 * k)) ** i), n_valid)
+    w = ((rank[None, :] < m[:, None]) & ok[None, :]).to(torch.float32)  # [num, N]
+    w = torch.where(torch.any(w > 0, dim=-1, keepdim=True), w, torch.ones_like(w))
+    return torch.multinomial(w, k, replacement=True, generator=generator)
 
 
-def _score(err: Tensor, valid: Tensor, thr: float):
+def _score(err: Tensor, valid: Tensor, thr):
     """(num_inliers, score) per hypothesis; score orders by inliers then
-    truncated residual sum. err [H,N], valid [N]."""
-    ok = (err < thr) & (valid > 0)
+    truncated residual sum. err [..., H, N], valid [..., N]; thr a float or a
+    tensor of the batch shape [...]."""
+    if torch.is_tensor(thr):
+        thr_e, thr_h = thr[..., None, None], thr[..., None]
+    else:
+        thr_e = thr_h = thr
+    v = valid[..., None, :]
+    ok = (err < thr_e) & (v > 0)
     n_in = torch.sum(ok, dim=-1)
-    trunc = torch.sum(torch.clamp(err, max=thr) * valid, dim=-1)
-    score = n_in.to(torch.float32) - trunc / (thr * torch.clamp(torch.sum(valid), min=1.0))
+    trunc = torch.sum(torch.clamp(err, max=thr_e) * v, dim=-1)
+    score = n_in.to(torch.float32) - trunc / (thr_h * torch.clamp(torch.sum(v, dim=-1), min=1.0))
     return n_in, score
 
 
@@ -167,3 +197,107 @@ def _refine_pose(q, t, uv, X, mask, thr2, iters):
         q = torch.where(better, q_n, q)
         t = torch.where(better, t_n, t)
     return q, t
+
+
+class TwoViewResult(NamedTuple):
+    model: Tensor  # [..., 3, 3] (E, F, or H)
+    inlier_mask: Tensor
+    num_inliers: Tensor
+
+
+def _gather_rows(x: Tensor, idx: Tensor) -> Tensor:
+    """x [..., N, C], idx [..., S, k] -> [..., S, k, C]. The index goes to
+    int64: torch.gather misreads an expanded int32 index."""
+    flat = idx.long().flatten(-2)[..., None].expand(idx.shape[:-2] + (idx.shape[-2] * idx.shape[-1], x.shape[-1]))
+    return torch.gather(x, -2, flat).reshape(idx.shape + (x.shape[-1],))
+
+
+def _draw_bank(generators, valid: Tensor, num: int, k: int, quality: Tensor | None) -> Tensor:
+    """Minimal-sample indices [..., num, k]: valid [N] draws with one
+    generator; valid [B, N] draws item b with generators[b]."""
+    if valid.dim() == 1:
+        return _draw_samples(generators, valid, num, k, quality)
+    return torch.stack([
+        _draw_samples(g, valid[b], num, k, None if quality is None else quality[b])
+        for b, g in enumerate(generators)
+    ])
+
+
+def _ransac_two_view(uv1, uv2, valid, generators, opts, solver, resid, sample_k,
+                     quality=None, max_error=None, minimal_solver=None,
+                     models_per_sample=1, sample_idx=None):
+    """One LO-RANSAC bank per item of the leading batch dims: uv1/uv2
+    [..., N, 2], valid [..., N]. minimal_solver (optional) hypothesizes up
+    to m models per minimal sample as ([..., m, 3, 3], [..., m] valid);
+    `solver` is the non-minimal LO refit (and the minimal solver when none
+    is given). max_error may be a tensor of the batch shape (per-pair
+    thresholds). sample_idx [..., S, k] replaces the random draw (tests)."""
+    H = opts.num_hypotheses
+    n_samples = max(1, H // models_per_sample)
+    if sample_idx is None:
+        sample_idx = _draw_bank(generators, valid, n_samples, sample_k, quality)
+    s1 = _gather_rows(uv1, sample_idx)  # [..., S, k, 2]
+    s2 = _gather_rows(uv2, sample_idx)
+    if minimal_solver is None:
+        models = solver(s1, s2, None)[..., None, :, :]
+        model_ok = torch.ones(models.shape[:-2], dtype=torch.bool, device=uv1.device)
+    else:
+        models, model_ok = minimal_solver(s1, s2)  # [..., S, m, 3, 3], [..., S, m]
+    models = models.flatten(-4, -3)
+    model_ok = model_ok.flatten(-2)
+    errs = resid(models, uv1[..., None, :, :], uv2[..., None, :, :])  # [..., M, N]
+    errs = torch.where(model_ok[..., None], errs, torch.full_like(errs, 1e12))
+    thr2 = (opts.max_error if max_error is None else max_error) ** 2
+    n_in, score = _score(errs, valid, thr2)
+    best = torch.argmax(score, dim=-1)
+    M_b = torch.gather(models, -3, best[..., None, None, None].expand(best.shape + (1, 3, 3)))[..., 0, :, :]
+    best_in = torch.gather(n_in, -1, best[..., None])[..., 0]
+
+    thr_n = thr2[..., None] if torch.is_tensor(thr2) else thr2
+    v = valid > 0
+    for _ in range(opts.lo_rounds):
+        inl = ((resid(M_b, uv1, uv2) < thr_n) & v).to(uv1.dtype)
+        M_n = solver(uv1, uv2, inl)
+        n_n = torch.sum((resid(M_n, uv1, uv2) < thr_n) & v, dim=-1)
+        better = n_n >= best_in
+        M_b = torch.where(better[..., None, None], M_n, M_b)
+        best_in = torch.maximum(n_n, best_in)
+    mask = (resid(M_b, uv1, uv2) < thr_n) & v
+    return TwoViewResult(M_b, mask, torch.sum(mask, dim=-1))
+
+
+def ransac_fundamental(uv1, uv2, valid, generators, opts: RansacOptions = RansacOptions(),
+                       quality=None, sample_idx=None):
+    """F from pixel coords; max_error in pixels (Sampson). 7-point minimal
+    hypotheses (up to 3 per sample), 8-point LO refits: the reference's
+    F-LORANSAC (estimators/two_view_geometry.cc:271-273,392)."""
+    return _ransac_two_view(
+        uv1, uv2, valid, generators, opts,
+        lambda a, b, m: solvers.eight_point(a, b, m, essential=False),
+        solvers.sampson_error, 7, quality,
+        minimal_solver=solvers.seven_point, models_per_sample=3, sample_idx=sample_idx,
+    )
+
+
+def ransac_essential(uv1, uv2, valid, generators, opts: RansacOptions = RansacOptions(),
+                     quality=None, max_error=None, sample_idx=None):
+    """E from normalized camera coords; max_error in normalized units
+    (opts.max_error, or `max_error`, a float or per-item tensor). Nister
+    5-point minimal hypotheses (up to 10 per sample), 8-point + manifold
+    projection LO refits (estimators/two_view_geometry.cc)."""
+    return _ransac_two_view(
+        uv1, uv2, valid, generators, opts,
+        lambda a, b, m: solvers.eight_point(a, b, m, essential=True),
+        solvers.sampson_error, 5, quality, max_error,
+        minimal_solver=solvers.five_point, models_per_sample=10, sample_idx=sample_idx,
+    )
+
+
+def ransac_homography(uv1, uv2, valid, generators, opts: RansacOptions = RansacOptions(),
+                      quality=None, sample_idx=None):
+    """H from pixel coords; max_error in pixels (transfer error)."""
+    return _ransac_two_view(
+        uv1, uv2, valid, generators, opts,
+        solvers.homography_dlt, solvers.homography_transfer_error, 4, quality,
+        sample_idx=sample_idx,
+    )

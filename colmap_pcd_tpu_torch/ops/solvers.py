@@ -1,20 +1,112 @@
-"""Batched absolute-pose solvers: P3P, EPnP and Umeyama.
+"""Batched geometric solvers: triangulation, P3P, EPnP, Umeyama, and the
+two-view E/F/H solvers.
 
-Port of the PnP part of colmap_pcd_tpu/ops/solvers.py (`p3p` :125, `epnp`
-:259, `umeyama` :302). Every function broadcasts over leading batch dims, so
-a RANSAC bank of minimal samples is one batched solve instead of a loop. The
-E/F/H solvers of that module belong to the matching slice and are not ported
-yet (ROADMAP.md queue 1).
+Port of colmap_pcd_tpu/ops/solvers.py. Every function broadcasts over
+leading batch dims (typically [pairs, samples]) where the JAX package
+vmaps, so a RANSAC bank of minimal samples over a block of image pairs is
+one batched solve instead of a loop. Nullspaces come from `eigh` of the
+d x d Gram matrix, 3x3 determinants are closed-form, and Nister's
+five-point expansion is precomputed once as constant contraction tables.
+
+`eigh` and `svd` have no `*_ex` variant: on CUDA each call checks its
+status on the host, one sync per call (`_eigh` calls once per 16 384
+matrices). The `linalg_syncs` counter of utils.logging_utils.PHASES
+counts them.
 """
 
 from __future__ import annotations
 
+import functools
+import itertools
+import math
+
 import torch
 
+from ..utils.logging_utils import PHASES
 from . import polynomial as poly_ops
 from . import se3
 
 Tensor = torch.Tensor
+
+
+def _count_sync(x: Tensor):
+    if x.is_cuda:
+        PHASES.totals.setdefault("linalg_syncs", 0.0)
+        PHASES.counts["linalg_syncs"] = PHASES.counts.get("linalg_syncs", 0) + 1
+
+
+# cuSOLVER's batched eigh (the path torch takes for small matrices on CUDA)
+# refuses 32768 or more matrices in one call; measured on an H100 with
+# torch 2.11 / CUDA 12.8
+_EIGH_BATCH = 16384
+
+
+def _eigh(M: Tensor) -> tuple[Tensor, Tensor]:
+    flat = M.reshape(-1, M.shape[-2], M.shape[-1])
+    parts = []
+    for start in range(0, max(flat.shape[0], 1), _EIGH_BATCH):
+        _count_sync(M)
+        parts.append(torch.linalg.eigh(flat[start : start + _EIGH_BATCH]))
+    w = torch.cat([p[0] for p in parts]).reshape(M.shape[:-1])
+    V = torch.cat([p[1] for p in parts]).reshape(M.shape)
+    return w, V
+
+
+def _svd(M: Tensor) -> tuple[Tensor, Tensor, Tensor]:
+    _count_sync(M)
+    return torch.linalg.svd(M)
+
+
+def det3(M: Tensor) -> Tensor:
+    """Closed-form determinant of [..., 3, 3]."""
+    a, b, c = M[..., 0, 0], M[..., 0, 1], M[..., 0, 2]
+    d, e, f = M[..., 1, 0], M[..., 1, 1], M[..., 1, 2]
+    g, h, i = M[..., 2, 0], M[..., 2, 1], M[..., 2, 2]
+    return a * (e * i - f * h) - b * (d * i - f * g) + c * (d * h - e * g)
+
+
+def _homog(uv: Tensor) -> Tensor:
+    return torch.cat([uv, torch.ones_like(uv[..., :1])], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# triangulation (reference: src/base/triangulation.cc)
+
+
+def triangulate_dlt(proj1: Tensor, proj2: Tensor, uv1: Tensor, uv2: Tensor) -> Tensor:
+    """DLT triangulation from two 3x4 projection matrices [..., 3, 4] and
+    coords [..., 2] (normalized or pixel, matching the matrices); the
+    nullvector comes from eigh of the 4x4 Gram matrix."""
+    rows = torch.stack(
+        torch.broadcast_tensors(
+            uv1[..., 0, None] * proj1[..., 2, :] - proj1[..., 0, :],
+            uv1[..., 1, None] * proj1[..., 2, :] - proj1[..., 1, :],
+            uv2[..., 0, None] * proj2[..., 2, :] - proj2[..., 0, :],
+            uv2[..., 1, None] * proj2[..., 2, :] - proj2[..., 1, :],
+        ),
+        dim=-2,
+    )  # [...,4,4]
+    M = rows.mT @ rows
+    _, V = _eigh(M)
+    X = V[..., :, 0]  # smallest-eigenvalue eigenvector
+    w = X[..., 3]
+    w = torch.where(torch.abs(w) < 1e-12, torch.full_like(w, 1e-12), w)
+    return X[..., :3] / w[..., None]
+
+
+def proj_matrix(q: Tensor, t: Tensor) -> Tensor:
+    """[R|t] 3x4 from pose, batched."""
+    return torch.cat([se3.quat_to_rotmat(q), t[..., :, None]], dim=-1)
+
+
+def triangulation_angle(center1: Tensor, center2: Tensor, X: Tensor) -> Tensor:
+    """Angle at X subtended by the two camera centers (radians)."""
+    v1 = center1 - X
+    v2 = center2 - X
+    c = torch.sum(v1 * v2, dim=-1) / torch.clamp(
+        torch.linalg.norm(v1, dim=-1) * torch.linalg.norm(v2, dim=-1), min=1e-12
+    )
+    return torch.arccos(torch.clamp(c, -1.0, 1.0))
 
 
 def p3p(uv: Tensor, X: Tensor) -> tuple[Tensor, Tensor, Tensor]:
@@ -223,3 +315,378 @@ def umeyama(src: Tensor, dst: Tensor, with_scale: bool = False, mask: Tensor | N
         s = torch.ones_like(wsum)
     t = mu_d - s[..., None] * (R @ mu_s[..., None])[..., 0]
     return se3.rotmat_to_quat(R), t, s
+
+
+# ---------------------------------------------------------------------------
+# epipolar geometry
+
+
+def _normalize_points(uv: Tensor, mask: Tensor | None = None) -> tuple[Tensor, Tensor]:
+    """Hartley normalization over the point axis: uv [..., n, 2] ->
+    (uv_norm [..., n, 2], T [..., 3, 3]) with T @ uv_h = uv_norm_h.
+
+    With a mask [..., n], mean and rms come from the masked rows only: an
+    LO refit on an inlier subset must not let outlier coordinates skew the
+    conditioning."""
+    if mask is None:
+        mean = torch.mean(uv, dim=-2)
+        rms = torch.sqrt(torch.mean(torch.sum((uv - mean[..., None, :]) ** 2, dim=-1), dim=-1))
+    else:
+        w = mask / torch.clamp(torch.sum(mask, dim=-1, keepdim=True), min=1.0)
+        mean = torch.sum(uv * w[..., None], dim=-2)
+        rms = torch.sqrt(torch.sum(torch.sum((uv - mean[..., None, :]) ** 2, dim=-1) * w, dim=-1))
+    s = math.sqrt(2.0) / torch.clamp(rms, min=1e-12)
+    zero, one = torch.zeros_like(s), torch.ones_like(s)
+    T = torch.stack(
+        [
+            torch.stack([s, zero, -s * mean[..., 0]], dim=-1),
+            torch.stack([zero, s, -s * mean[..., 1]], dim=-1),
+            torch.stack([zero, zero, one], dim=-1),
+        ],
+        dim=-2,
+    )
+    return (uv - mean[..., None, :]) * s[..., None, None], T
+
+
+def _inv_hartley(T: Tensor) -> Tensor:
+    """Closed-form inverse of a Hartley normalization matrix."""
+    si = 1.0 / T[..., 0, 0]
+    zero, one = torch.zeros_like(si), torch.ones_like(si)
+    return torch.stack(
+        [
+            torch.stack([si, zero, -T[..., 0, 2] * si], dim=-1),
+            torch.stack([zero, si, -T[..., 1, 2] * si], dim=-1),
+            torch.stack([zero, zero, one], dim=-1),
+        ],
+        dim=-2,
+    )
+
+
+def nullspace_vecs(A: Tensor, k: int) -> Tensor:
+    """Last-k right singular vectors of A [..., n, d] as rows [..., k, d],
+    most-null first, via eigh of the d x d Gram matrix (inputs are
+    Hartley-normalized, so its squared conditioning is benign in f32)."""
+    _, V = _eigh(A.mT @ A)  # ascending eigenvalues
+    return V[..., :, :k].mT
+
+
+def _epipolar_rows(n1: Tensor, n2: Tensor) -> Tensor:
+    """Rows of x2^T F x1 = 0 with F row-major: [..., n, 9]."""
+    x1, y1 = n1[..., 0], n1[..., 1]
+    x2, y2 = n2[..., 0], n2[..., 1]
+    return torch.stack(
+        [x2 * x1, x2 * y1, x2, y2 * x1, y2 * y1, y2, x1, y1, torch.ones_like(x1)], dim=-1
+    )
+
+
+def _fro_normalize(F: Tensor) -> Tensor:
+    nrm = torch.sqrt(torch.sum(F * F, dim=(-2, -1)))
+    nrm = torch.where(nrm < 1e-12, torch.full_like(nrm, 1e-12), nrm)
+    return F / nrm[..., None, None]
+
+
+def eight_point(uv1: Tensor, uv2: Tensor, mask: Tensor | None = None, essential: bool = False) -> Tensor:
+    """8-point algorithm for F (or E, projected to the essential manifold).
+
+    uv1/uv2 [..., n, 2] (n >= 8); for E pass normalized camera coords.
+    Returns [..., 3, 3]. reference: estimators/fundamental_matrix.h:93."""
+    m = torch.ones_like(uv1[..., 0]) if mask is None else mask
+    n1, T1 = _normalize_points(uv1, m)
+    n2, T2 = _normalize_points(uv2, m)
+    A = _epipolar_rows(n1, n2) * m[..., None]
+    F = nullspace_vecs(A, 1)[..., 0, :].reshape(A.shape[:-2] + (3, 3))
+    U, S, Vt = _svd(F)
+    if essential:
+        S2 = torch.cat([torch.ones_like(S[..., :2]), torch.zeros_like(S[..., 2:])], dim=-1)
+    else:
+        S2 = torch.cat([S[..., :2], torch.zeros_like(S[..., 2:])], dim=-1)
+    F = U @ (S2[..., :, None] * Vt)
+    return _fro_normalize(T2.mT @ F @ T1)
+
+
+def _cbrt(x: Tensor) -> Tensor:
+    return torch.sign(x) * torch.abs(x) ** (1.0 / 3.0)
+
+
+def seven_point(uv1: Tensor, uv2: Tensor) -> tuple[Tensor, Tensor]:
+    """7-point fundamental matrix: up to 3 solutions.
+
+    uv1/uv2 [..., 7, 2] pixel coords. Returns (Fs [..., 3, 3, 3], valid
+    [..., 3]). The nullspace of the 7x9 system is span{F1, F2};
+    det(F1 + t F2) = 0 is a cubic solved in closed form (trigonometric for
+    three real roots, Cardano for one). reference:
+    estimators/fundamental_matrix.h:53."""
+    n1, T1 = _normalize_points(uv1)
+    n2, T2 = _normalize_points(uv2)
+    ns = nullspace_vecs(_epipolar_rows(n1, n2), 2)
+    shape = ns.shape[:-2] + (3, 3)
+    F1 = ns[..., 0, :].reshape(shape)
+    F2 = ns[..., 1, :].reshape(shape)
+
+    c0 = det3(F1)
+    rhs = torch.stack([det3(F1 + F2) - c0, det3(F1 - F2) - c0, det3(F1 + 2.0 * F2) - c0], dim=-1)
+    c3, c2, c1 = (rhs @ _const("seven_point_minv", rhs.device, rhs.dtype).T).unbind(-1)
+
+    a = torch.where(torch.abs(c3) < 1e-12, torch.full_like(c3, 1e-12), c3)
+    b, c, d = c2 / a, c1 / a, c0 / a
+    p = c - b * b / 3.0
+    q = 2.0 * b**3 / 27.0 - b * c / 3.0 + d
+    disc = (q / 2.0) ** 2 + (p / 3.0) ** 3
+    # three-real-root branch
+    pm = torch.clamp(p, max=-1e-12)
+    m = 2.0 * torch.sqrt(-pm / 3.0)
+    arg = torch.clamp(3.0 * q / (pm * m), -1.0, 1.0)
+    theta = torch.arccos(arg) / 3.0
+    k = torch.arange(3, dtype=rhs.dtype, device=rhs.device)
+    roots3 = m[..., None] * torch.cos(theta[..., None] - 2.0 * math.pi * k / 3.0) - b[..., None] / 3.0
+    # single-real-root branch (Cardano)
+    sq = torch.sqrt(torch.clamp(disc, min=0.0))
+    root1 = _cbrt(-q / 2.0 + sq) + _cbrt(-q / 2.0 - sq) - b / 3.0
+    three_real = (disc <= 0)[..., None]
+    roots = torch.where(three_real, roots3, root1[..., None].expand_as(roots3))
+    valid = three_real | _const("first_root", rhs.device, torch.bool)
+
+    Fs = F1[..., None, :, :] + roots[..., None, None] * F2[..., None, :, :]
+    Fs = T2.mT[..., None, :, :] @ Fs @ T1[..., None, :, :]
+    return _fro_normalize(Fs), valid
+
+
+def _one_hot(shape, entries) -> Tensor:
+    t = torch.zeros(shape, dtype=torch.float32)
+    for idx in entries:
+        t[idx] += 1.0
+    return t
+
+
+def _five_point_tables():
+    """Constant tables of Nister's expansion, built once at import.
+
+    E = x Eb0 + y Eb1 + z Eb2 + Eb3; each E entry is linear in the variables
+    v = (x, y, z, 1). The ten cubic constraints (det E = 0 and
+    2 E E^T E - tr(E E^T) E = 0) are sums of coef * E_a E_b E_c over entry
+    indices a, b, c (table COEF [10, 9, 9, 9]); a product of variables maps
+    to a monomial of degree <= 2 (table S2 [4, 4, 10]) and then <= 3 (table
+    S3 [10, 4, 20], Nister's order). Evaluating a whole bank is then a
+    handful of batched contractions, whatever the number of monomials."""
+    var = [(1, 0, 0), (0, 1, 0), (0, 0, 1), (0, 0, 0)]
+    mon2 = sorted({tuple(a + b for a, b in zip(var[i], var[j])) for i in range(4) for j in range(4)})
+    mon3 = [
+        (3, 0, 0), (0, 3, 0), (2, 1, 0), (1, 2, 0), (2, 0, 1),
+        (2, 0, 0), (0, 2, 1), (0, 2, 0), (1, 1, 1), (1, 1, 0),
+        (1, 0, 2), (1, 0, 1), (1, 0, 0), (0, 1, 2), (0, 1, 1),
+        (0, 1, 0), (0, 0, 3), (0, 0, 2), (0, 0, 1), (0, 0, 0),
+    ]
+
+    def add(a, b):
+        return tuple(x + y for x, y in zip(a, b))
+
+    S2 = _one_hot((4, 4, 10), [(i, j, mon2.index(add(var[i], var[j]))) for i in range(4) for j in range(4)])
+    S3 = _one_hot((10, 4, 20), [(m, k, mon3.index(add(mon2[m], var[k]))) for m in range(10) for k in range(4)])
+
+    def e(i, j):
+        return 3 * i + j
+
+    coef = torch.zeros((10, 9, 9, 9), dtype=torch.float32)
+    for (i0, j0), (i1, j1), (i2, j2), sign in (
+        ((0, 0), (1, 1), (2, 2), 1.0), ((0, 0), (1, 2), (2, 1), -1.0),
+        ((0, 1), (1, 0), (2, 2), -1.0), ((0, 1), (1, 2), (2, 0), 1.0),
+        ((0, 2), (1, 0), (2, 1), 1.0), ((0, 2), (1, 1), (2, 0), -1.0),
+    ):
+        coef[0, e(i0, j0), e(i1, j1), e(i2, j2)] += sign
+    for i, j in itertools.product(range(3), range(3)):
+        eq = 1 + 3 * i + j
+        for k, l in itertools.product(range(3), range(3)):
+            coef[eq, e(i, l), e(k, l), e(k, j)] += 2.0  # 2 (E E^T)_ik E_kj
+            coef[eq, e(k, l), e(k, l), e(i, j)] -= 1.0  # -tr(E E^T) E_ij
+    # contraction-ready layouts: S2 [16, 10], COEF [(eq, c), (a, b)],
+    # S3 [4, (m2, m3)]
+    return (
+        S2.reshape(16, 10),
+        coef.permute(0, 3, 1, 2).reshape(90, 81),
+        S3.permute(1, 0, 2).reshape(4, 200),
+    )
+
+
+def _conv_table(na: int, nb: int) -> Tensor:
+    return _one_hot((na * nb, na + nb - 1), [(i * nb + j, i + j) for i in range(na) for j in range(nb)])
+
+
+def _conv(a: Tensor, b: Tensor) -> Tensor:
+    """Batched polynomial product (numpy.convolve) by one constant table."""
+    outer = (a[..., :, None] * b[..., None, :]).flatten(-2)
+    return outer @ _const(f"conv{a.shape[-1]}x{b.shape[-1]}", a.device, a.dtype)
+
+
+def _five_point_poly(uv1: Tensor, uv2: Tensor):
+    """Nister reduction: (det10 [..., 11] z-polynomial highest-first, the
+    B(z) row polynomials (px [..., 3, 4], py [..., 3, 4], pc [..., 3, 5]),
+    and the nullspace basis Eb [..., 4, 3, 3])."""
+    A = _epipolar_rows(uv1, uv2)  # [..., 5, 9]
+    Ebf = nullspace_vecs(A, 4).flip(-2)  # [..., 4, 9]: E = x Eb0 + y Eb1 + z Eb2 + Eb3
+    batch = Ebf.shape[:-2]
+    dev = Ebf.device
+    # Q[a, b, m2]: E_a E_b over degree-2 monomials
+    P = (Ebf[..., :, None, :, None] * Ebf[..., None, :, None, :]).reshape(batch + (16, 81))
+    Q = P.mT @ _const("five_s2", dev, Ebf.dtype)  # [..., 81 (a,b), 10]
+    W = _const("five_coef", dev, Ebf.dtype) @ Q  # [..., 90 (eq,c), 10 (m2)]
+    R = Ebf.mT @ _const("five_s3", dev, Ebf.dtype)  # [..., 9 (c), 200 (m2,m3)]
+    M = W.reshape(batch + (10, 90)) @ R.reshape(batch + (90, 20))  # [..., 10, 20]
+
+    # Gauss-Jordan: first10 = -C @ last10-monomials
+    C = torch.linalg.solve_ex(M[..., :10], M[..., 10:])[0]  # [..., 10, 10]
+    # B(z) rows from the row pairs (4,5), (6,7), (8,9): d_j(z) = z C[r2,j] - C[r1,j]
+    Cr1 = C[..., [4, 6, 8], :]
+    Cr2 = C[..., [5, 7, 9], :]
+    pad = torch.nn.functional.pad
+    px = pad(Cr2[..., 0:3], (0, 1)) - pad(Cr1[..., 0:3], (1, 0))
+    py = pad(Cr2[..., 3:6], (0, 1)) - pad(Cr1[..., 3:6], (1, 0))
+    pc = pad(Cr2[..., 6:10], (0, 1)) - pad(Cr1[..., 6:10], (1, 0))
+    m12_yc = _conv(py[..., 1, :], pc[..., 2, :]) - _conv(py[..., 2, :], pc[..., 1, :])
+    m12_xc = _conv(px[..., 1, :], pc[..., 2, :]) - _conv(px[..., 2, :], pc[..., 1, :])
+    m12_xy = _conv(px[..., 1, :], py[..., 2, :]) - _conv(px[..., 2, :], py[..., 1, :])
+    det10 = (
+        _conv(px[..., 0, :], m12_yc) - _conv(py[..., 0, :], m12_xc) + _conv(pc[..., 0, :], m12_xy)
+    )
+    return det10, (px, py, pc), Ebf.reshape(batch + (4, 3, 3))
+
+
+def five_point(uv1: Tensor, uv2: Tensor) -> tuple[Tensor, Tensor]:
+    """Nister 5-point essential matrix: up to 10 solutions.
+
+    uv1/uv2 [..., 5, 2] normalized camera coords. Returns (Es [..., 10, 3,
+    3], valid [..., 10]). The degree-10 det B(z) polynomial is rooted by
+    the batched Durand-Kerner of ops/polynomial. reference:
+    estimators/essential_matrix.h (EssentialMatrixFivePointEstimator)."""
+    det10, (px, py, pc), Eb = _five_point_poly(uv1, uv2)
+    z, ok = poly_ops.real_roots(det10)  # [..., 10]
+    zc = z[..., :, None]
+    pxv = poly_ops.polyval(px[..., None, :, :], zc)  # [..., 10, 3]
+    pyv = poly_ops.polyval(py[..., None, :, :], zc)
+    pcv = poly_ops.polyval(pc[..., None, :, :], zc)
+    ia = _const("pair_a", z.device, torch.int64)
+    ib = _const("pair_b", z.device, torch.int64)
+    # solve the best-conditioned 2x2 row pair of B(z) [x, y, 1]^T = 0
+    d2 = pxv[..., ia] * pyv[..., ib] - pxv[..., ib] * pyv[..., ia]
+    k = torch.argmax(torch.abs(d2), dim=-1, keepdim=True)
+    a, b = ia[k], ib[k]
+    d2k = torch.gather(d2, -1, k)[..., 0]
+    # sign-preserving floor; the root is invalid when even the best pair
+    # is degenerate
+    sgn = torch.where(d2k < 0.0, -1.0, 1.0)
+    det2 = sgn * torch.clamp(torch.abs(d2k), min=1e-12)
+    ok = ok & (torch.abs(d2k) >= 1e-12)
+
+    def at(v, i):
+        return torch.gather(v, -1, i)[..., 0]
+
+    x = (-at(pcv, a) * at(pyv, b) + at(pcv, b) * at(pyv, a)) / det2
+    y = (at(pcv, a) * at(pxv, b) - at(pcv, b) * at(pxv, a)) / det2
+    Eb = Eb[..., None, :, :, :]
+    Ez = (
+        x[..., None, None] * Eb[..., 0, :, :] + y[..., None, None] * Eb[..., 1, :, :]
+        + z[..., None, None] * Eb[..., 2, :, :] + Eb[..., 3, :, :]
+    )
+    Ez = _fro_normalize(Ez)
+    ok = ok & torch.isfinite(Ez).all(-1).all(-1)
+    eye = torch.eye(3, dtype=Ez.dtype, device=Ez.device)
+    return torch.where(ok[..., None, None], Ez, eye), ok
+
+
+_five_s2, _five_coef, _five_s3 = _five_point_tables()
+# constant tables of the two-view solvers, on the host
+_CONSTS = {
+    "five_s2": _five_s2,
+    "five_coef": _five_coef,
+    "five_s3": _five_s3,
+    **{f"conv{na}x{nb}": _conv_table(na, nb) for na, nb in ((4, 5), (4, 4), (4, 8), (5, 7))},
+    # the cubic det(F1 + t F2) = c3 t^3 + c2 t^2 + c1 t + c0 is sampled at
+    # t = 1, -1, 2; rows of [t^3, t^2, t] inverted once
+    "seven_point_minv": torch.linalg.inv(
+        torch.tensor([[1.0, 1.0, 1.0], [-1.0, 1.0, -1.0], [8.0, 4.0, 2.0]], dtype=torch.float64)
+    ),
+    "first_root": torch.tensor([True, False, False]),
+    # the 2x2 row pairs of B(z) five_point solves from
+    "pair_a": torch.tensor([0, 0, 1]),
+    "pair_b": torch.tensor([1, 2, 2]),
+    "w_essential": torch.tensor([[0.0, 1.0, 0.0], [-1.0, 0.0, 0.0], [0.0, 0.0, 1.0]]),
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _const(name: str, device: torch.device, dtype: torch.dtype) -> Tensor:
+    """A constant table on `device`, copied there once: a copy from pageable
+    host memory synchronizes the stream. Callers never write to it."""
+    return _CONSTS[name].to(device, dtype)
+
+
+def sampson_error(F: Tensor, uv1: Tensor, uv2: Tensor) -> Tensor:
+    """Squared Sampson distance of uv1/uv2 [..., N, 2] under F [..., 3, 3]
+    (reference: base/essential_matrix.cc)."""
+    x1 = _homog(uv1)
+    x2 = _homog(uv2)
+    Fx1 = x1 @ F.mT
+    Ftx2 = x2 @ F
+    num = torch.sum(x2 * Fx1, dim=-1) ** 2
+    den = Fx1[..., 0] ** 2 + Fx1[..., 1] ** 2 + Ftx2[..., 0] ** 2 + Ftx2[..., 1] ** 2
+    return num / torch.clamp(den, min=1e-12)
+
+
+def decompose_essential(E: Tensor, uv1: Tensor, uv2: Tensor, mask: Tensor) -> tuple[Tensor, Tensor]:
+    """The (R, t) of E with the most points in front of both cameras.
+
+    E [..., 3, 3]; uv1/uv2 [..., N, 2] normalized coords of cam1 (at
+    identity) and cam2; mask [..., N]. Returns the world-to-cam2 pose
+    (q [..., 4], t [..., 3]) with |t| = 1; all four candidates are
+    triangulated in one batch. reference: base/pose.cc."""
+    U, _, Vt = _svd(E)
+    U = U * torch.sign(det3(U))[..., None, None]
+    Vt = Vt * torch.sign(det3(Vt))[..., None, None]
+    W = _const("w_essential", E.device, E.dtype)
+    R1 = U @ W @ Vt
+    R2 = U @ W.T @ Vt
+    t = U[..., :, 2]
+    Rs = torch.stack([R1, R1, R2, R2], dim=-3)  # [..., 4, 3, 3]
+    ts = torch.stack([t, -t, t, -t], dim=-2)  # [..., 4, 3]
+    qs = se3.rotmat_to_quat(Rs)
+    P1 = torch.eye(3, 4, dtype=E.dtype, device=E.device)
+    P2 = proj_matrix(qs, ts)[..., :, None, :, :]
+    X = triangulate_dlt(P1, P2, uv1[..., None, :, :], uv2[..., None, :, :])  # [..., 4, N, 3]
+    z1 = X[..., 2]
+    z2 = (X @ Rs.mT + ts[..., None, :])[..., 2]
+    good = (z1 > 0) & (z2 > 0) & (torch.abs(z1) < 1e3) & (mask[..., None, :] > 0)
+    best = torch.argmax(torch.sum(good, dim=-1), dim=-1)  # first of equal counts
+    q = torch.gather(qs, -2, best[..., None, None].expand(best.shape + (1, 4)))[..., 0, :]
+    tb = torch.gather(ts, -2, best[..., None, None].expand(best.shape + (1, 3)))[..., 0, :]
+    return q, tb
+
+
+# ---------------------------------------------------------------------------
+# homography
+
+
+def homography_dlt(uv1: Tensor, uv2: Tensor, mask: Tensor | None = None) -> Tensor:
+    """4+ point homography via normalized DLT, uv [..., n, 2] ->
+    [..., 3, 3] with H[2,2] = 1 (estimators/homography_matrix.h)."""
+    m = torch.ones_like(uv1[..., 0]) if mask is None else mask
+    n1, T1 = _normalize_points(uv1, m)
+    n2, T2 = _normalize_points(uv2, m)
+    x1, y1 = n1[..., 0], n1[..., 1]
+    x2, y2 = n2[..., 0], n2[..., 1]
+    z = torch.zeros_like(x1)
+    o = torch.ones_like(x1)
+    r1 = torch.stack([-x1, -y1, -o, z, z, z, x2 * x1, x2 * y1, x2], dim=-1)
+    r2 = torch.stack([z, z, z, -x1, -y1, -o, y2 * x1, y2 * y1, y2], dim=-1)
+    A = torch.cat([r1 * m[..., None], r2 * m[..., None]], dim=-2)
+    H = nullspace_vecs(A, 1)[..., 0, :].reshape(A.shape[:-2] + (3, 3))
+    Hn = _inv_hartley(T2) @ H @ T1
+    h22 = Hn[..., 2, 2]
+    h22 = torch.where(torch.abs(h22) < 1e-12, torch.full_like(h22, 1e-12), h22)
+    return Hn / h22[..., None, None]
+
+
+def homography_transfer_error(H: Tensor, uv1: Tensor, uv2: Tensor) -> Tensor:
+    """Squared forward transfer error |H x1 - x2|^2."""
+    y = _homog(uv1) @ H.mT
+    w = y[..., 2:3]
+    w = torch.where(torch.abs(w) < 1e-12, torch.full_like(w, 1e-12), w)
+    return torch.sum((y[..., :2] / w - uv2) ** 2, dim=-1)

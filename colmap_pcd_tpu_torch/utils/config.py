@@ -51,7 +51,7 @@ class SiftMatchingConfig:
     max_error: float = 4.0
     min_num_inliers: int = 15
     guided_matching: bool = False
-    use_pallas: bool = False  # fused Pallas top-2 matcher (TPU)
+    use_pallas: bool = False  # accepted, no effect: on CUDA the top-2 kernel K1 is the matcher
     # hypothesis-bank size for match-stage two-view verification; the
     # registration-time init-pair estimation keeps TwoViewOptions' 2048 —
     # matcher-stage geometry only gates pairs and seeds the correspondence

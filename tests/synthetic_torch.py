@@ -5,7 +5,9 @@ build the same map, trajectory, keypoints and matches. Builds a lidar map
 (two walls + ground with normals), a forward-moving camera trajectory, 3D
 feature points on the map surfaces, per-image keypoints and a
 correspondence graph — everything the incremental mapper consumes, with
-exact ground truth for ATE."""
+exact ground truth for ATE. `make_descriptor_world` adds SIFT-like uint8
+descriptors and distractor keypoints, so that the matchers can rebuild the
+matches from the database."""
 
 from __future__ import annotations
 
@@ -40,7 +42,13 @@ def build_corridor_map(rng, length=30.0, spacing=0.05):
     return pts, nrm
 
 
-def make_world(
+def make_world(rng, **kw):
+    """Returns (rec, graph, lidar_map, gt_poses) — a ready-to-run world with
+    the lidar map on `device` (keywords of _make_world)."""
+    return _make_world(rng, **kw)[:4]
+
+
+def _make_world(
     rng,
     n_images=10,
     n_points=800,
@@ -52,9 +60,12 @@ def make_world(
     map_spacing=0.05,
     yaw_wiggle=0.02,
     device="cpu",
+    distractor_share=0.0,
 ):
-    """Returns (rec, graph, lidar_map, gt_poses) — a ready-to-run world with
-    the lidar map on `device`."""
+    """make_world, plus `point_ids` {image_id: [n_kp] world-point index of
+    each keypoint, -1 for a distractor}. distractor_share > 0 appends that
+    share of uniformly placed keypoints to each image (and draws from rng;
+    at 0 it draws exactly as make_world always has)."""
     map_pts, map_nrm = build_corridor_map(rng, length=n_images * step + 25, spacing=map_spacing)
     lmap = LidarMap.from_arrays(map_pts, map_nrm, pc_ops.ProjOptions(), device=device)
 
@@ -83,6 +94,7 @@ def make_world(
 
     # project all points into all images; record visibility + keypoints
     feat_of_point = {}  # image_id -> {point_idx: feat_idx}
+    point_ids = {}
     for i, (q, t) in enumerate(gt, start=1):
         xy, z = np_geom.project(PINHOLE, padded, q, t, X)
         vis = (
@@ -92,9 +104,14 @@ def make_world(
         )
         idxs = np.nonzero(vis)[0]
         kps = xy[idxs] + rng.normal(0, noise_px, (idxs.size, 2))
+        point_ids[i] = idxs
+        if distractor_share > 0:
+            n_d = int(round(distractor_share * idxs.size))
+            kps = np.concatenate([kps, rng.uniform([5, 5], [width - 5, height - 5], (n_d, 2))])
+            point_ids[i] = np.concatenate([idxs, np.full(n_d, -1, idxs.dtype)])
         img = Image(i, f"img{i:04d}.png", 1, xys=kps.astype(np.float64))
         rec.add_image(img)
-        graph.add_image(i, idxs.size)
+        graph.add_image(i, kps.shape[0])
         feat_of_point[i] = {int(p): k for k, p in enumerate(idxs)}
 
     # matches between image pairs within a window
@@ -108,7 +125,69 @@ def make_world(
             )
             graph.add_matches(i, j, m)
 
-    return rec, graph, lmap, gt
+    return rec, graph, lmap, gt, point_ids
+
+
+def _sift_like(rng, n: int) -> np.ndarray:
+    """Random non-negative unit descriptors [n, 128] (squared normals: a
+    random pair lies ~1.2 rad apart, a spread like SIFT's)."""
+    d = rng.normal(size=(n, 128)) ** 2
+    return d / np.linalg.norm(d, axis=-1, keepdims=True)
+
+
+def make_descriptor_world(rng, distractor_share=0.1, desc_noise=0.02, **kw):
+    """make_world whose images also carry descriptors, for the matchers.
+
+    Each world point gets a random non-negative 128-dim descriptor; each
+    observation gets it with N(0, desc_noise) per entry, clipped at 0,
+    renormalized and quantized as the JAX package's
+    `sift.descriptors_to_uint8` does (x 512, rounded, clipped to [0, 255]).
+    At 0.02 two observations of a point lie ~0.3 rad apart, well inside
+    max_distance 0.7 and the 0.8 ratio against the ~1.2 rad of a random
+    pair. `distractor_share` of extra keypoints per image get random
+    descriptors; other keywords go to make_world. Returns (rec, graph, lidar_map, gt_poses, descriptors
+    {image_id: uint8 [n_kp, 128]}, point_ids {image_id: [n_kp]}, -1 for a
+    distractor); the graph holds the ground-truth correspondences."""
+    rec, graph, lmap, gt, point_ids = _make_world(rng, distractor_share=distractor_share, **kw)
+    base = _sift_like(rng, max(int(p.max(initial=-1)) for p in point_ids.values()) + 1)
+    descriptors = {}
+    for iid in sorted(rec.images):
+        pid = point_ids[iid]
+        d = np.where(pid[:, None] >= 0, base[np.maximum(pid, 0)], _sift_like(rng, pid.size))
+        d = np.maximum(d + rng.normal(0, desc_noise, d.shape), 0.0)
+        d /= np.maximum(np.linalg.norm(d, axis=-1, keepdims=True), 1e-12)
+        descriptors[iid] = np.clip(np.round(d * 512.0), 0, 255).astype(np.uint8)
+    return rec, graph, lmap, gt, descriptors, point_ids
+
+
+def match_precision_recall(database_path: str, point_ids: dict) -> dict:
+    """Precision of the inlier matches the matcher wrote (two-view
+    geometries) against the generator's correspondences, and recall over
+    the correspondences of every pair the matcher tried."""
+    from colmap_pcd_tpu_torch.models.database import Database, pair_id_to_image_pair
+
+    db = Database(database_path)
+    tried = [pair_id_to_image_pair(r[0]) for r in db.conn.execute("SELECT pair_id FROM matches")]
+    tp = written = gt_total = verified = 0
+    for i, j in tried:
+        pi, pj = point_ids[i], point_ids[j]
+        gt_total += len(np.intersect1d(pi[pi >= 0], pj[pj >= 0]))
+        g = db.read_two_view_geometry(i, j)
+        if g is None or len(g["inlier_matches"]) == 0:
+            continue
+        verified += 1
+        m = g["inlier_matches"].astype(np.int64)
+        a, b = pi[m[:, 0]], pj[m[:, 1]]
+        tp += int(np.sum((a >= 0) & (a == b)))
+        written += len(m)
+    db.close()
+    return {
+        "pairs_tried": len(tried),
+        "pairs_verified": verified,
+        "inlier_matches": written,
+        "precision": tp / max(written, 1),
+        "recall": tp / max(gt_total, 1),
+    }
 
 
 def ate_rmse(rec: Reconstruction, gt) -> float:
@@ -138,11 +217,13 @@ def scale_error(rec: Reconstruction, gt) -> float:
 
 
 def write_world(rec: Reconstruction, graph: CorrespondenceGraph, lmap: LidarMap, gt, out_dir: str,
-                prior_ids=(1,)) -> dict:
+                prior_ids=(1,), descriptors: dict | None = None) -> dict:
     """Write a world as the `mapper` command's inputs: a COLMAP database with
     keypoints and verified matches, the map as a lidar-frame PLY with
     normals, and a pose-prior file holding the ground truth of `prior_ids`.
-    Returns their paths."""
+    Given `descriptors` (make_descriptor_world), the database holds them
+    and no two-view geometries: a matcher command writes those. Returns
+    the paths."""
     import os
 
     from colmap_pcd_tpu_torch.io import ply as ply_io
@@ -163,8 +244,11 @@ def write_world(rec: Reconstruction, graph: CorrespondenceGraph, lmap: LidarMap,
         kp = np.zeros((img.xys.shape[0], 4), np.float32)
         kp[:, :2] = img.xys
         db.write_keypoints(iid, kp)
-    for i, j in sorted(graph.image_pairs()):
-        db.write_two_view_geometry(i, j, graph.matches_between(i, j), config=2)
+        if descriptors is not None:
+            db.write_descriptors(iid, descriptors[iid])
+    if descriptors is None:
+        for i, j in sorted(graph.image_pairs()):
+            db.write_two_view_geometry(i, j, graph.matches_between(i, j), config=2)
     db.commit()
     db.close()
 
@@ -197,6 +281,19 @@ def mapper_argv(paths: dict, out_dir: str, *extra: str) -> list:
         "--Mapper.image_pose_prior_path", paths["poses"],
         "--Mapper.init_image_id1", "1",
         "--Mapper.init_image_id2", "2",
+        "--output_path", out_dir,
+        *extra,
+    ]
+
+
+def classic_mapper_argv(paths: dict, out_dir: str, init=(1, 3), *extra: str) -> list:
+    """The `mapper` command line without a lidar map: classic two-view
+    initialization on the pair `init`."""
+    return [
+        "mapper",
+        "--database_path", paths["database"],
+        "--Mapper.init_image_id1", str(init[0]),
+        "--Mapper.init_image_id2", str(init[1]),
         "--output_path", out_dir,
         *extra,
     ]

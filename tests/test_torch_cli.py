@@ -78,6 +78,39 @@ def test_port_path_never_imports_jax(tmp_path):
     assert Reconstruction.read(str(out / "0")).num_reg_images >= 4
 
 
+def test_port_matcher_and_classic_mapper_never_import_jax(tmp_path):
+    """`sequential_matcher`, then `mapper` without a lidar map, in a fresh
+    interpreter where `import jax` fails loudly."""
+    rec, graph, lmap, gt, desc, _ = synthetic_torch.make_descriptor_world(
+        np.random.default_rng(11), n_images=5, n_points=400, noise_px=0.2
+    )
+    paths = synthetic_torch.write_world(rec, graph, lmap, gt, str(tmp_path), descriptors=desc)
+    out = tmp_path / "out"
+    match_argv = ["sequential_matcher", "--database_path", paths["database"]]
+    map_argv = synthetic_torch.classic_mapper_argv(
+        paths, str(out), (1, 3), "--Mapper.init_min_tri_angle", "2",
+        "--Mapper.init_min_num_inliers", "30", "--Mapper.abs_pose_min_num_inliers", "15",
+        "--Mapper.multiple_models", "0",
+    )
+    code = (
+        "import sys; sys.modules['jax'] = None\n"
+        "import torch; torch.set_num_threads(1)\n"
+        "from colmap_pcd_tpu_torch import cli\n"
+        f"assert cli.main({match_argv!r}) == 0\n"
+        f"rc = cli.main({map_argv!r})\n"
+        "assert not any(m == 'jax' or m.startswith(('jax.', 'colmap_pcd_tpu.'))"
+        " for m in sys.modules if sys.modules[m] is not None), 'jax imported'\n"
+        "sys.exit(rc)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=str(tmp_path), env=env,
+        capture_output=True, text=True, timeout=600,
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert Reconstruction.read(str(out / "0")).num_reg_images >= 4
+
+
 def test_port_sources_have_no_jax_import():
     offenders = [
         str(p.relative_to(REPO))

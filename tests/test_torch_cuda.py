@@ -9,7 +9,7 @@ import numpy as np
 import pytest
 import torch
 
-from colmap_pcd_tpu_torch.ops import nn_kernel
+from colmap_pcd_tpu_torch.ops import match_kernel, matching, nn_kernel
 
 pytestmark = pytest.mark.cuda
 
@@ -17,7 +17,7 @@ pytestmark = pytest.mark.cuda
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU: the nn_argmin CUDA kernel has no CPU mode")
+        pytest.skip("needs an NVIDIA GPU: the hand-written CUDA kernels have no CPU mode")
     return torch.device("cuda")
 
 
@@ -78,3 +78,53 @@ def test_mapper_on_gpu_goes_through_the_kernel(cuda_device):
     assert rec.num_reg_images >= 7
     assert ate_rmse(rec, gt) < 0.10
     assert scale_error(rec, gt) < 0.02
+
+
+def test_match_kernel_matches_plain_version(cuda_device):
+    """K1 against its plain version at the matcher's chunk (16 pairs at cap
+    2048, ragged valid rows): similarities to 1e-6, indices equal away
+    from near-ties, and match_descriptors' decisions equal away from them."""
+    rng = np.random.default_rng(0)
+    B, cap = 16, 2048
+    d = rng.normal(size=(B, 2 * cap, 128)) ** 2
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    v1 = np.zeros((B, cap), np.float32)
+    v2 = np.zeros((B, cap), np.float32)
+    for b in range(B):
+        v1[b, : rng.integers(1500, cap + 1)] = 1.0
+        v2[b, : rng.integers(1500, cap + 1)] = 1.0
+    d1 = torch.as_tensor((d[:, :cap] * v1[..., None]).astype(np.float32), device=cuda_device)
+    noisy = d[:, :cap] + rng.normal(0, 0.02, (B, cap, 128))
+    noisy /= np.linalg.norm(noisy, axis=-1, keepdims=True)
+    d2 = torch.as_tensor((noisy[:, rng.permutation(cap)] * v2[..., None]).astype(np.float32), device=cuda_device)
+    v1t, v2t = torch.as_tensor(v1, device=cuda_device), torch.as_tensor(v2, device=cuda_device)
+    before = match_kernel.match_top2.launches
+    s1, s2, idx = match_kernel.match_top2(d1, d2, v2t)
+    torch.cuda.synchronize()
+    assert match_kernel.match_top2.launches == before + 1
+    r1, r2, ridx = match_kernel.match_top2_reference(d1, d2, v2t)
+    assert float((s1 - r1).abs().max()) <= 1e-6
+    assert float((s2 - r2).abs().max()) <= 1e-6
+    sep = (r1 - r2) > 1e-6
+    assert bool((idx[sep] == ridx[sep]).all())
+    _, ok, _ = matching.match_descriptors(d1, d2, v1t, v2t)
+    _, ok_ref, _ = matching.match_descriptors_reference(d1, d2, v1t, v2t)
+    assert int(((ok != ok_ref) & sep).sum()) == 0
+    assert int(ok.sum()) > 1000
+
+
+def test_sequential_matcher_on_gpu_goes_through_the_kernel(cuda_device, tmp_path):
+    """`sequential_matcher` on the GPU launches K1 and writes precise
+    verified matches."""
+    from colmap_pcd_tpu_torch import cli
+    from synthetic_torch import make_descriptor_world, match_precision_recall, write_world
+
+    rec, graph, lmap, gt, desc, point_ids = make_descriptor_world(
+        np.random.default_rng(5), n_images=6, n_points=420
+    )
+    paths = write_world(rec, graph, lmap, gt, str(tmp_path), descriptors=desc)
+    before = match_kernel.match_top2.launches
+    assert cli.main(["sequential_matcher", "--database_path", paths["database"]]) == 0
+    assert match_kernel.match_top2.launches > before
+    pr = match_precision_recall(paths["database"], point_ids)
+    assert pr["pairs_verified"] > 0 and pr["precision"] > 0.99, pr
