@@ -10,9 +10,12 @@
 // What bounds it on Hopper: f32 FMA issue. The matcher's chunk is B = 16
 // image pairs of up to 2048 x 2048 descriptors of 128 floats, 2 x 16 x
 // 2048^2 x 128 x 2 = 34 GFLOP with the cross-check's transposed launch;
-// the inputs (16 MB each) sit in L2. Design, simple first (f32 so that it
-// can be held exactly against its plain version; a bf16 wgmma/TMA design
-// is later work):
+// the inputs (16 MB each) sit in L2. This is the route for float
+// descriptors (the guided matcher, any caller with normalized f32 rows); the
+// matcher's uint8 descriptors go through csrc/match_top2_u8.cu, which forms
+// the products on the integer tensor cores and is exact for another reason.
+// Design (f32 FMAs, so that it can be held exactly against its plain
+// version):
 //   * a block owns TQ = 64 rows of d1 for one pair and keeps them in shared
 //     memory for its whole column loop; tiles of TN = 64 columns of d2 are
 //     staged through shared memory; 256 threads each compute a 4 x 4

@@ -3,8 +3,9 @@
 Port of the matching half of colmap_pcd_tpu/models/feature_pipeline.py
 (parity with src/feature/matching.{h,cc}, the matcher controller family):
 each controller enumerates candidate pairs its own way, then a shared
-worker matches descriptors (through the hand-written top-2 kernel K1 on a
-CUDA device), verifies two-view geometry with the batched E/F/H LO-RANSAC
+worker matches descriptors (uint8 as the database holds them, through the
+hand-written tensor-core top-2 kernel K1 on a CUDA device), verifies
+two-view geometry with the batched E/F/H LO-RANSAC
 banks, optionally re-matches guided by F, and writes `matches` and
 `two_view_geometries`.
 
@@ -27,6 +28,7 @@ import torch
 
 from .. import device as device_mod
 from ..ops import camera_models as cm
+from ..ops import match_kernel
 from ..ops import matching as matching_ops
 from ..ops import np_geom
 from ..utils.config import SiftMatchingConfig
@@ -60,7 +62,8 @@ class _MatchWorker:
         self.cfg = config
         self.device = device_mod.resolve(device)
         self._host_cache: dict[int, tuple[np.ndarray, np.ndarray, np.ndarray, int]] = {}
-        self._dev_cache: dict[int, torch.Tensor] = {}
+        self._dev_cache: dict[int, tuple[torch.Tensor, torch.Tensor]] = {}
+        self._float_cache: dict[int, torch.Tensor] = {}
         self._dev_lock = threading.Lock()
         self.cameras = db.cameras()
         self.images = db.images()
@@ -90,17 +93,30 @@ class _MatchWorker:
             self._host_cache[image_id] = (kp_p, d_u8, v, N)
         return self._host_cache[image_id]
 
-    def _feats_dev(self, image_id: int, d_u8: np.ndarray) -> torch.Tensor:
-        """Device-resident normalized descriptors (padding rows normalize to
-        zero): one uint8 upload per image, normalized on the device."""
+    def _feats_dev(self, image_id: int, d_u8: np.ndarray) -> tuple[torch.Tensor, torch.Tensor]:
+        """Device-resident (uint8 descriptors, f32 inverse norms; 0 for a
+        padding row): one uint8 upload per image, its norms taken once on
+        the device."""
         with self._dev_lock:
-            d = self._dev_cache.get(image_id)
-        if d is None:
-            d = matching_ops.normalize_descriptors(torch.as_tensor(d_u8, device=self.device))
+            feats = self._dev_cache.get(image_id)
+        if feats is None:
+            d = torch.as_tensor(d_u8, device=self.device)
+            feats = (d, match_kernel.inverse_norms(d))
             with self._dev_lock:
                 if len(self._dev_cache) > 200:
                     self._dev_cache.pop(next(iter(self._dev_cache)))
-                self._dev_cache[image_id] = d
+                self._dev_cache[image_id] = feats
+        return feats
+
+    def _feats_float(self, image_id: int, d_u8: np.ndarray) -> torch.Tensor:
+        """Device-resident normalized f32 descriptors for the float route
+        (`match_pair`), normalized once per image. Caller thread only."""
+        d = self._float_cache.get(image_id)
+        if d is None:
+            d = matching_ops.normalize_descriptors(self._feats_dev(image_id, d_u8)[0])
+            if len(self._float_cache) > 200:
+                self._float_cache.pop(next(iter(self._float_cache)))
+            self._float_cache[image_id] = d
         return d
 
     def _mopts(self) -> matching_ops.MatchingOptions:
@@ -128,17 +144,19 @@ class _MatchWorker:
 
     def _dev_match(self, prep):
         """Device: upload missing descriptors, match the whole chunk as one
-        [B, cap, 128] bank, fetch (idx, ok, sim) once."""
+        [B, cap, 128] uint8 bank, fetch (idx, ok, sim) once."""
         cap = prep["cap"]
-        d1s, v1s, d2s, v2s = [], [], [], []
+        sides = ([], [], []), ([], [], [])  # descriptors, inverse norms, valid
         for (i, j), (f1, f2) in zip(prep["pairs"], prep["hfeats"]):
-            for iid, f, ds, vs in ((i, f1, d1s, v1s), (j, f2, d2s, v2s)):
-                d = self._feats_dev(iid, f[1])
+            for iid, f, (ds, ns, vs) in ((i, f1, sides[0]), (j, f2, sides[1])):
+                d, inv = self._feats_dev(iid, f[1])
                 ds.append(torch.nn.functional.pad(d, (0, 0, 0, cap - d.shape[0])))
+                ns.append(torch.nn.functional.pad(inv, (0, cap - inv.shape[0])))
                 vs.append(np.pad(f[2], (0, cap - f[2].shape[0])))
         dev = self.device
-        idx, ok, sim = matching_ops.match_descriptors(
-            torch.stack(d1s), torch.stack(d2s),
+        (d1s, n1s, v1s), (d2s, n2s, v2s) = sides
+        idx, ok, sim = matching_ops.match_descriptors_u8(
+            torch.stack(d1s), torch.stack(d2s), torch.stack(n1s), torch.stack(n2s),
             torch.as_tensor(np.stack(v1s), device=dev), torch.as_tensor(np.stack(v2s), device=dev),
             self._mopts(),
         )
@@ -250,7 +268,8 @@ class _MatchWorker:
         if n1 == 0 or n2 == 0:
             return 0
         dev = self.device
-        d1, d2 = self._feats_dev(id1, d1_u8), self._feats_dev(id2, d2_u8)
+        # the guided re-match masks a float similarity matrix: float route
+        d1, d2 = self._feats_float(id1, d1_u8), self._feats_float(id2, d2_u8)
         v1t, v2t = torch.as_tensor(v1, device=dev), torch.as_tensor(v2, device=dev)
         mopts = self._mopts()
         idx, ok, sim1 = matching_ops.match_descriptors(d1, d2, v1t, v2t, mopts)

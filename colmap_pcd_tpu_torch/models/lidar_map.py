@@ -47,6 +47,7 @@ class LidarMap:
     cell_count: np.ndarray  # [n_cells]
     # device-resident copies (sorted by cell)
     d_points: torch.Tensor
+    d_points4: torch.Tensor  # [N,4] (x, y, z, 0): the layout the 1-NN kernel reads
     d_normals: torch.Tensor
     d_valid: torch.Tensor  # [N] f32 ones: every map point is a candidate
     opts: pc_ops.ProjOptions
@@ -88,6 +89,7 @@ class LidarMap:
         """A map from points already sorted by grid cell and their CSR table."""
         xyz = np.ascontiguousarray(xyz, np.float32)
         nrm = np.ascontiguousarray(nrm, np.float32)
+        d_points = torch.as_tensor(xyz, device=device)
         return cls(
             points=xyz,
             normals=nrm,
@@ -95,7 +97,8 @@ class LidarMap:
             cell_keys=np.asarray(cell_keys).astype(np.int32),
             cell_start=np.asarray(cell_start).astype(np.int64),
             cell_count=np.asarray(cell_count).astype(np.int64),
-            d_points=torch.as_tensor(xyz, device=device),
+            d_points=d_points,
+            d_points4=nn_kernel.pack_points(d_points),
             d_normals=torch.as_tensor(nrm, device=device),
             d_valid=torch.ones(xyz.shape[0], dtype=torch.float32, device=device),
             opts=opts,
@@ -203,6 +206,6 @@ class LidarMap:
             idx, dist = self.host_tree.nn(np.asarray(queries, np.float32))
         else:
             q = torch.as_tensor(np.ascontiguousarray(queries, np.float32), device=self.device)
-            idx_t, dist_t = nn_kernel.nn_argmin(q, self.d_points)
+            idx_t, dist_t = nn_kernel.nn_argmin(q, self.d_points4)
             idx, dist = idx_t.cpu().numpy(), dist_t.cpu().numpy()
         return self.points[idx], self.normals[idx], dist

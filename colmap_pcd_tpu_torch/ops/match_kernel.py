@@ -1,13 +1,22 @@
-"""Top-2 descriptor matching: the hand-written CUDA kernel
-(csrc/match_top2.cu) and its plain PyTorch version.
+"""Top-2 descriptor matching: the hand-written CUDA kernels and their
+plain PyTorch versions.
 
-Replaces the Pallas TPU kernel `match_top2` (colmap_pcd_tpu/ops/
+Both replace the Pallas TPU kernel `match_top2` (colmap_pcd_tpu/ops/
 pallas_kernels.py:77, pallas_call :94). For each row of d1 against the
-columns of d2 (one image pair per leading batch item) it gives the best
+columns of d2 (one image pair per leading batch item) they give the best
 similarity, the second best and the column of the best, with invalid
-columns counted as -2 and ties going to the lowest column. `match_top2`
-launches the kernel for CUDA tensors and raises if it cannot; only CPU
-tensors take `match_top2_reference`. The kernel is built at its first
+columns counted as -2 and ties going to the lowest column.
+
+  * `match_top2_u8` (csrc/match_top2_u8.cu) takes the uint8 descriptors the
+    database holds and their f32 inverse norms, and forms the products on
+    the integer tensor cores; the similarity float(dot) * (inv_row *
+    inv_col) is exact in the dot product, so kernel and plain version agree
+    to the last bit. The matcher's path.
+  * `match_top2` (csrc/match_top2.cu) takes L2-normalized f32 descriptors
+    and forms the products with f32 FMAs. The route for float descriptors.
+
+Each wrapper launches its kernel for CUDA tensors and raises if it cannot;
+only CPU tensors take the plain version. A kernel is built at its first
 launch by ops/cuda_build.py; importing this module needs no CUDA toolkit.
 """
 
@@ -19,14 +28,16 @@ import threading
 
 import torch
 
-from .cuda_build import CSRC_DIR, build_library
+from .cuda_build import CSRC_DIR, build_library, on_device, sm_count
 
 Tensor = torch.Tensor
 
 SOURCE = os.path.join(CSRC_DIR, "match_top2.cu")
+SOURCE_U8 = os.path.join(CSRC_DIR, "match_top2_u8.cu")
 
 _lock = threading.Lock()
 _lib = None
+_lib_u8 = None
 
 
 def build() -> ctypes.CDLL:
@@ -92,6 +103,25 @@ def match_top2_reference(d1: Tensor, d2: Tensor, valid2: Tensor) -> tuple[Tensor
     return tuple(torch.cat(parts) for parts in zip(*outs))
 
 
+def split_columns(N2: int, tile: int, wanted: int) -> tuple[int, int]:
+    """(chunk, splits): the N2 columns in about `wanted` splits; chunk is a
+    multiple of the column tile and splits * chunk >= N2."""
+    splits = max(1, min(-(-N2 // tile), wanted))
+    chunk = -(-(-(-N2 // splits)) // tile) * tile
+    return chunk, -(-N2 // chunk)
+
+
+def _outputs(dev, B: int, N1: int, parts: int):
+    """(s1 f32, s2 f32, idx int32, three scratch addresses) from one
+    allocation: the outputs [B, N1] and `parts` partial (best, column,
+    second best) of the column splits."""
+    n = B * N1
+    buf = torch.empty((3 + 3 * parts, B, N1), dtype=torch.int32, device=dev)
+    fbuf = buf.view(torch.float32)
+    base = buf.data_ptr() + 12 * n
+    return fbuf[0], fbuf[1], buf[2], tuple(base + 4 * n * parts * k for k in range(3))
+
+
 def match_top2(d1: Tensor, d2: Tensor, valid2: Tensor) -> tuple[Tensor, Tensor, Tensor]:
     """(s1 f32, s2 f32, idx int32) [..., N1] of d1 [B?, N1, 128] against
     d2 [B?, N2, 128] with valid2 [B?, N2] (float, > 0 = valid column).
@@ -115,27 +145,17 @@ def match_top2(d1: Tensor, d2: Tensor, valid2: Tensor) -> tuple[Tensor, Tensor, 
     if d1.data_ptr() % 16 or d2.data_ptr() % 16:
         raise ValueError("match_top2: descriptors must be 16-byte aligned")
     B, N1, N2 = d1.shape[0], d1.shape[1], d2.shape[1]
-    s1 = torch.empty((B, N1), dtype=torch.float32, device=dev)
-    s2 = torch.empty((B, N1), dtype=torch.float32, device=dev)
-    idx = torch.empty((B, N1), dtype=torch.int32, device=dev)
     if B == 0 or N1 == 0:
-        return s1, s2, idx
+        return _outputs(dev, B, N1, 0)[:3]
     # split the columns across blocks until ~4 blocks per SM are in flight
-    tq, tn = lib.match_top2_tile_rows(), lib.match_top2_tile_cols()
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    blocks = B * -(-N1 // tq)
-    splits = max(1, min(-(-N2 // tn), -(-4 * sms // blocks)))
-    chunk = -(-(-(-N2 // splits)) // tn) * tn
-    splits = -(-N2 // chunk)
-    part_b1 = torch.empty((splits, B, N1), dtype=torch.float32, device=dev)
-    part_i1 = torch.empty((splits, B, N1), dtype=torch.int32, device=dev)
-    part_b2 = torch.empty((splits, B, N1), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+    blocks = B * -(-N1 // lib.match_top2_tile_rows())
+    chunk, splits = split_columns(N2, lib.match_top2_tile_cols(), -(-4 * sm_count(dev) // blocks))
+    s1, s2, idx, part = _outputs(dev, B, N1, splits)
+    with on_device(dev):
         err = lib.match_top2_launch(
             d1.data_ptr(), N1, d2.data_ptr(), N2, valid2.data_ptr(), B, chunk, splits,
-            part_b1.data_ptr(), part_i1.data_ptr(), part_b2.data_ptr(),
-            s1.data_ptr(), s2.data_ptr(), idx.data_ptr(), stream,
+            *part, s1.data_ptr(), s2.data_ptr(), idx.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"match_top2 kernel launch failed: cudaError {err}")
@@ -145,3 +165,155 @@ def match_top2(d1: Tensor, d2: Tensor, valid2: Tensor) -> tuple[Tensor, Tensor, 
 
 
 match_top2.launches = 0
+
+
+# --------------------------------------------------------------------------
+# uint8 descriptors on the integer tensor cores
+
+
+def load_u8(source: str = SOURCE_U8) -> ctypes.CDLL:
+    """Compile (if the source changed), load and bind one library of the
+    uint8 kernel; `build_u8` keeps the one of the package's own source."""
+    lib = build_library(source)
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.match_top2_u8_launch.argtypes = [vp, ci, vp, ci, vp, vp, vp, vp, ci, ci, ci] + [vp] * 7
+    lib.match_top2_u8_launch.restype = ci
+    for name in ("match_top2_u8_tile_rows", "match_top2_u8_tile_cols", "match_top2_u8_width"):
+        getattr(lib, name).argtypes = []
+        getattr(lib, name).restype = ci
+    return lib
+
+
+def build_u8() -> ctypes.CDLL:
+    """The library of csrc/match_top2_u8.cu, built at the first call."""
+    global _lib_u8
+    with _lock:
+        if _lib_u8 is None:
+            _lib_u8 = load_u8()
+        return _lib_u8
+
+
+def inverse_norms(d_u8: Tensor) -> Tensor:
+    """f32 1 / |row| of uint8 descriptors [..., N, D]; 0 for a zero row (the
+    matcher's padding), whose similarity to anything is then 0."""
+    norm = torch.linalg.norm(d_u8.to(torch.float32), dim=-1)
+    return torch.where(norm > 0, 1.0 / norm, torch.zeros_like(norm))
+
+
+def _check_u8(d1, d2, inv1, inv2, valid2, valid1):
+    if d1.dtype != torch.uint8 or d2.dtype != torch.uint8:
+        raise ValueError(f"match_top2_u8: descriptors must be uint8, got {d1.dtype}, {d2.dtype}")
+    if d1.dim() not in (2, 3) or d2.dim() != d1.dim() or d1.shape[-1] != d2.shape[-1]:
+        raise ValueError(f"match_top2_u8: d1 {tuple(d1.shape)} and d2 {tuple(d2.shape)} must be [B,N,D] or [N,D]")
+    if d1.shape[-1] > 256:  # 255^2 * 256 < 2^24: the dot product stays exact in f32
+        raise ValueError("match_top2_u8: descriptors wider than 256 would not be exact")
+    rows, cols = d1.shape[:-1], d2.shape[:-1]
+    if (rows[:-1] != cols[:-1] or inv1.shape != rows or inv2.shape != cols or valid2.shape != cols
+            or (valid1 is not None and valid1.shape != rows)):
+        raise ValueError(
+            f"match_top2_u8: shape mismatch: d1 {tuple(d1.shape)}, d2 {tuple(d2.shape)}, inv1 "
+            f"{tuple(inv1.shape)}, inv2 {tuple(inv2.shape)}, valid2 {tuple(valid2.shape)}, valid1 "
+            f"{None if valid1 is None else tuple(valid1.shape)}"
+        )
+    if inv1.dtype != torch.float32 or inv2.dtype != torch.float32:
+        raise ValueError("match_top2_u8: inverse norms must be float32")
+    if cols[-1] == 0:
+        raise ValueError("match_top2_u8: d2 has no columns")
+    dev = d1.device
+    if (d2.device != dev or inv1.device != dev or inv2.device != dev or valid2.device != dev
+            or (valid1 is not None and valid1.device != dev)):
+        raise ValueError("match_top2_u8: inputs on different devices")
+
+
+def similarity_u8(d1: Tensor, d2: Tensor, inv1: Tensor, inv2: Tensor) -> Tensor:
+    """The similarity matrix [..., N1, N2] as the uint8 kernel forms it:
+    float(dot) * (inv_row * inv_col). The f32 matmul of uint8-valued floats
+    is exact (every partial sum is an integer below 2^24), and the product
+    of the two inverse norms commutes, so the transposed call gives the
+    transposed matrix bit for bit."""
+    dot = d1.to(torch.float32) @ d2.to(torch.float32).mT
+    return dot * (inv1[..., :, None] * inv2[..., None, :])
+
+
+def match_top2_u8_reference(d1, d2, inv1, inv2, valid2, valid1=None):
+    """Plain PyTorch version of `match_top2_u8`, blocked over the pairs like
+    `match_top2_reference`. Returns (s1 f32, s2 f32, idx int32) [..., N1]."""
+    _check_u8(d1, d2, inv1, inv2, valid2, valid1)
+    if d1.dim() == 2:
+        args = (d1, d2, inv1, inv2, valid2, valid1)
+        return tuple(x[0] for x in match_top2_u8_reference(*(None if a is None else a[None] for a in args)))
+    B, N1, N2 = d1.shape[0], d1.shape[1], d2.shape[1]
+    block = max(1, (1 << 26) // max(N1 * N2, 1))
+    outs = []
+    for b0 in range(0, B, block):
+        sl = slice(b0, b0 + block)
+        s1, s2, idx = _best2(similarity_u8(d1[sl], d2[sl], inv1[sl], inv2[sl]), valid2[sl])
+        outs.append((s1, s2, idx.to(torch.int32)))
+    s1, s2, idx = (torch.cat(parts) for parts in zip(*outs))
+    if valid1 is not None:
+        ok = valid1 > 0
+        s1 = torch.where(ok, s1, torch.full_like(s1, -2.0))
+        s2 = torch.where(ok, s2, torch.full_like(s2, -2.0))
+        idx = torch.where(ok, idx, torch.zeros_like(idx))
+    return s1, s2, idx
+
+
+def match_top2_u8(d1, d2, inv1, inv2, valid2, valid1=None):
+    """(s1 f32, s2 f32, idx int32) [..., N1] of uint8 descriptors d1
+    [B?, N1, 128] against d2 [B?, N2, 128], with their f32 inverse norms
+    inv1 [B?, N1], inv2 [B?, N2] (`inverse_norms`) and valid2 [B?, N2]
+    (float, > 0 = valid column, others count as -2). With valid1 [B?, N1],
+    rows that are not valid return (-2, -2, 0) and row tiles without a
+    valid row cost nothing.
+
+    CUDA tensors launch the tensor-core kernel (counted in
+    `match_top2_u8.launches`); CPU tensors take the plain version. Raises on
+    anything else."""
+    _check_u8(d1, d2, inv1, inv2, valid2, valid1)
+    dev = d1.device
+    if dev.type == "cpu":
+        return match_top2_u8_reference(d1, d2, inv1, inv2, valid2, valid1)
+    if dev.type != "cuda":
+        raise ValueError(f"match_top2_u8: unsupported device {dev}")
+    if d1.dim() == 2:
+        args = (d1, d2, inv1, inv2, valid2, valid1)
+        return tuple(x[0] for x in match_top2_u8(*(None if a is None else a[None] for a in args)))
+    if d1.shape[0] == 0 or d1.shape[1] == 0:
+        return _outputs(dev, d1.shape[0], d1.shape[1], 0)[:3]
+    out = launch_u8(build_u8(), d1, d2, inv1, inv2, valid2, valid1)
+    with _lock:
+        match_top2_u8.launches += 1
+    return out
+
+
+def launch_u8(lib: ctypes.CDLL, d1, d2, inv1, inv2, valid2, valid1=None):
+    """One launch of `lib`'s uint8 kernel on checked, batched, non-empty CUDA
+    tensors."""
+    dev = d1.device
+    if d1.shape[-1] != lib.match_top2_u8_width():
+        raise ValueError(f"match_top2_u8: the kernel takes {lib.match_top2_u8_width()}-wide descriptors")
+    d1, d2, inv1, inv2 = (x.contiguous() for x in (d1, d2, inv1, inv2))
+    valid2 = valid2.to(torch.float32).contiguous()
+    if valid1 is not None:
+        valid1 = valid1.to(torch.float32).contiguous()
+    if d1.data_ptr() % 16 or d2.data_ptr() % 16:
+        raise ValueError("match_top2_u8: descriptors must be 16-byte aligned")
+    B, N1, N2 = d1.shape[0], d1.shape[1], d2.shape[1]
+    # one block runs per SM at a time: split the columns only while the row
+    # blocks are fewer than two waves (one split needs no reduce kernel)
+    blocks = B * -(-N1 // lib.match_top2_u8_tile_rows())
+    chunk, splits = split_columns(N2, lib.match_top2_u8_tile_cols(), 2 * sm_count(dev) // blocks)
+    s1, s2, idx, part = _outputs(dev, B, N1, splits if splits > 1 else 0)
+    with on_device(dev):
+        err = lib.match_top2_u8_launch(
+            d1.data_ptr(), N1, d2.data_ptr(), N2, inv1.data_ptr(), inv2.data_ptr(),
+            None if valid1 is None else valid1.data_ptr(), valid2.data_ptr(), B, chunk, splits,
+            *part, s1.data_ptr(), s2.data_ptr(), idx.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"match_top2_u8 kernel launch failed: cudaError {err}")
+    return s1, s2, idx
+
+
+match_top2_u8.launches = 0

@@ -6,10 +6,12 @@ sift.cc:142-165 convention), ratio test on arccos distances, optional cross
 check and a guided (epipolar-masked) variant (feature/matching.h:277-310).
 
 Every function broadcasts over a leading batch of image pairs. On CUDA
-tensors `match_descriptors` runs through the hand-written top-2 kernel K1
+tensors `match_descriptors` (L2-normalized f32 descriptors) and
+`match_descriptors_u8` (the database's uint8 descriptors with their inverse
+norms, the matcher's path) run through the hand-written top-2 kernels K1
 (ops/match_kernel.py): once for the rows, once on the transpose for the
 cross-check, so the similarity matrix never exists in memory. On CPU
-tensors it takes the plain matmul + `_best2`.
+tensors they take the plain matmul + `_best2`.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .match_kernel import _best2, match_top2
+from .match_kernel import _best2, match_top2, match_top2_u8, similarity_u8
 
 Tensor = torch.Tensor
 
@@ -71,11 +73,46 @@ def match_descriptors(
     return match_descriptors_reference(d1, d2, valid1, valid2, opts)
 
 
+def match_descriptors_u8(
+    d1: Tensor,  # [..., N1, D] uint8
+    d2: Tensor,  # [..., N2, D] uint8
+    inv1: Tensor,  # [..., N1] f32 inverse norms (match_kernel.inverse_norms)
+    inv2: Tensor,  # [..., N2]
+    valid1: Tensor,  # [..., N1]
+    valid2: Tensor,  # [..., N2]
+    opts: MatchingOptions = MatchingOptions(),
+) -> tuple[Tensor, Tensor, Tensor]:
+    """match_descriptors on the uint8 descriptors as the database holds
+    them: the similarity is float(dot) * (inv_row * inv_col), exact in the
+    dot product. CUDA tensors launch the tensor-core kernel
+    (`match_top2_u8`) for the rows and, with cross_check, on the transpose;
+    rows and columns that are not valid cost nothing there."""
+    if d1.device.type == "cuda":
+        s1, s2, idx = match_top2_u8(d1, d2, inv1, inv2, valid2, valid1)
+        idx = idx.long()
+        back = match_top2_u8(d2, d1, inv2, inv1, valid1, valid2)[2] if opts.cross_check else None
+        return idx, _accept(s1, s2, idx, back, valid1, opts), s1
+    return match_descriptors_u8_reference(d1, d2, inv1, inv2, valid1, valid2, opts)
+
+
+def match_descriptors_u8_reference(d1, d2, inv1, inv2, valid1, valid2,
+                                   opts: MatchingOptions = MatchingOptions()):
+    """Plain version of match_descriptors_u8 on any device; rows that are
+    not valid report (0, False, -2), as the kernel leaves them."""
+    idx, ok, s1 = _match_similarity(similarity_u8(d1, d2, inv1, inv2), valid1, valid2, opts)
+    rows = valid1 > 0
+    return torch.where(rows, idx, torch.zeros_like(idx)), ok, torch.where(rows, s1, torch.full_like(s1, -2.0))
+
+
 def match_descriptors_reference(d1, d2, valid1, valid2, opts: MatchingOptions = MatchingOptions()):
     """Plain version of match_descriptors on any device: the similarity
     matrix [..., N1, N2] in memory, reduced by `_best2` and an argmax over
     the rows for the cross-check."""
-    sim = d1 @ d2.mT  # [..., N1, N2]
+    return _match_similarity(d1 @ d2.mT, valid1, valid2, opts)
+
+
+def _match_similarity(sim: Tensor, valid1, valid2, opts: MatchingOptions):
+    """(idx, ok, s1) of a similarity matrix [..., N1, N2] in memory."""
     s1, s2, idx = _best2(sim, valid2)
     back = None
     if opts.cross_check:

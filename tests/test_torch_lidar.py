@@ -221,3 +221,65 @@ def test_lidar_map_nn_query_backends_and_conversion(corridor):
     idx, _ = pc_t.nn_query(T(qr), mt.d_points, T(valid))
     assert np.all(valid[idx.numpy()] > 0)
 
+
+
+def test_nn_reference_packed_map_with_ties_at_map_scale():
+    """The plain version on the [N,4] layout the kernel reads, at ~50 m
+    coordinates: the same answers as on [N,3], exact hits found at distance
+    0, and of equally near points (duplicates far apart in the map) the
+    lowest index."""
+    rng = np.random.default_rng(5)
+    p = rng.uniform([-40, -5, 20], [40, 5, 100], (30000, 3)).astype(np.float32)
+    p[20000:20010] = p[100:110]  # duplicates at higher indices
+    q = (p[rng.integers(0, len(p), 200)] + rng.normal(0, 0.3, (200, 3))).astype(np.float32)
+    q[:10] = p[20000:20010]
+    p4 = nn_kernel.pack_points(T(p))
+    assert p4.shape == (30000, 4) and p4.is_contiguous() and bool((p4[:, 3] == 0).all())
+    idx4, dist4 = nn_kernel.nn_argmin(T(q), p4)
+    idx3, dist3 = nn_kernel.nn_argmin_reference(T(q), T(p))
+    np.testing.assert_array_equal(idx4.numpy(), idx3.numpy())
+    np.testing.assert_array_equal(dist4.numpy(), dist3.numpy())
+    np.testing.assert_array_equal(idx4.numpy()[:10], np.arange(100, 110))
+    assert float(dist4[:10].max()) == 0.0
+    d64 = np.sqrt(((q[:, None, :].astype(np.float64) - p[None].astype(np.float64)) ** 2).sum(-1))
+    np.testing.assert_allclose(dist4.numpy(), d64.min(axis=1), rtol=1e-5, atol=1e-6)
+    with pytest.raises(ValueError):
+        nn_kernel.nn_argmin(T(q), torch.zeros((8, 5)))
+
+
+@pytest.mark.parametrize("Q,N", [(1, 5), (37, 504_000), (384, 504_000), (385, 504_000),
+                                 (4096, 504_000), (4096, 100_003), (100_000, 2000)])
+def test_nn_launch_plan_covers_the_map(Q, N):
+    """How the wrapper splits a launch over the grid (132 SMs; the scans'
+    sizes as a library reports them: 512 queries a block over 512-point
+    tiles, 8 queries a block over rounds of 1024 points): few queries take
+    the scan that splits the points among a block's threads, the chunks are
+    multiples of that scan's granule and cover the map with no empty split,
+    and about two blocks per SM are in flight."""
+    tiles = ((512, 512), (8, 1024))
+    mode, chunk, splits = nn_kernel.launch_plan(Q, N, 132, tiles)
+    assert mode == (1 if Q <= nn_kernel.FEW_QUERIES_MAX else 0)
+    block_queries, granule = tiles[mode]
+    assert chunk % granule == 0
+    assert splits * chunk >= N > (splits - 1) * chunk
+    blocks = -(-Q // block_queries) * splits
+    assert blocks <= 2 * 132 + -(-Q // block_queries)
+    if N >= 100_000:
+        assert blocks >= 132
+    # the measuring scripts force a scan and a depth through the arguments
+    assert nn_kernel.launch_plan(Q, N, 132, tiles, few_max=0)[0] == 0
+    assert nn_kernel.launch_plan(Q, N, 132, tiles, few_max=1 << 30, blocks_per_sm=4)[0] == 1
+
+
+def test_lidar_map_keeps_the_packed_map(corridor):
+    """LidarMap packs its map once at load; nn_query hands that copy to the
+    wrapper."""
+    pts, nrm = corridor
+    from colmap_pcd_tpu_torch.models.lidar_map import LidarMap as LidarMapT
+
+    m = LidarMapT.from_arrays(pts[:5000], nrm[:5000], device="cpu")
+    assert m.d_points4.shape == (5000, 4)
+    np.testing.assert_array_equal(m.d_points4[:, :3].numpy(), m.points)
+    got_p, _, got_d = m.nn_query(m.points[:50] + np.float32(0.001), backend="device")
+    np.testing.assert_array_equal(got_p, m.points[:50])
+    assert got_d.max() < 0.01

@@ -174,3 +174,37 @@ def test_initial_pair_verification_matches_jax(relaxed):
         opts = mapper.MapperOptions(if_add_lidar_constraint=False, **kw)
         verdicts.append((m.estimate_initial_two_view_geometry(opts, 1, 3), m._prev_init_pair))
     assert verdicts[0] == verdicts[1] == ((True, (1, 3)) if relaxed else (False, None))
+
+
+def test_batched_matcher_takes_the_uint8_path(tmp_path, monkeypatch):
+    """The chunked matcher hands the database's uint8 descriptors and their
+    inverse norms to match_descriptors_u8 (on a GPU: the tensor-core kernel)
+    and never normalizes to float; guided matching keeps the float route."""
+    from colmap_pcd_tpu_torch.ops import matching as matching_ops
+
+    paths, _, point_ids = _world(tmp_path, 8, 4, 300)
+    db_guided = str(tmp_path / "guided.db")
+    shutil.copy(paths["database"], db_guided)
+    calls = {"u8": 0, "float": 0}
+    u8, flt = matching_ops.match_descriptors_u8, matching_ops.match_descriptors
+
+    def count_u8(d1, d2, inv1, inv2, v1, v2, opts):
+        assert d1.dtype == d2.dtype == torch.uint8 and inv1.dtype == torch.float32
+        assert d1.shape[:2] == inv1.shape == v1.shape and d2.shape[:2] == inv2.shape == v2.shape
+        # padding rows carry inverse norm 0 and are not valid
+        assert bool(((inv1 > 0) == (v1 > 0)).all()) and bool(((inv2 > 0) == (v2 > 0)).all())
+        calls["u8"] += 1
+        return u8(d1, d2, inv1, inv2, v1, v2, opts)
+
+    def count_float(*args):
+        calls["float"] += 1
+        return flt(*args)
+
+    monkeypatch.setattr(matching_ops, "match_descriptors_u8", count_u8)
+    monkeypatch.setattr(matching_ops, "match_descriptors", count_float)
+    assert pipeline_t.run_sequential_matcher(paths["database"], MatchingConfigT(), overlap=2) == 5
+    assert calls == {"u8": 1, "float": 0}  # 5 pairs, one chunk
+    assert synthetic_torch.match_precision_recall(paths["database"], point_ids)["precision"] > 0.99
+    guided = MatchingConfigT(guided_matching=True)
+    assert pipeline_t.run_sequential_matcher(db_guided, guided, overlap=2) == 5
+    assert calls == {"u8": 1, "float": 5}

@@ -162,3 +162,178 @@ def test_match_guided_parity():
     np.testing.assert_array_equal(
         matching_t.matches_to_pairs(T(idx), T(ok)), matching_j.matches_to_pairs(ji, jok)
     )
+
+
+# ---------------------------------------------------------------------------
+# the uint8 path: descriptors as the database holds them, exact dot products
+
+
+def _sift_u8(rng, n):
+    """SIFT-like uint8 descriptors: non-negative, unit norm x 512, clipped."""
+    d = rng.normal(size=(n, 128)) ** 2
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    return np.clip(np.round(d * 512.0), 0, 255).astype(np.uint8)
+
+
+def _pair_u8(rng, n1, n2, noise=6.0):
+    """u2 holds noisy copies of most of u1's rows, permuted, plus clutter."""
+    u1 = _sift_u8(rng, n1)
+    shared = min(n1, n2) * 3 // 4
+    src = np.concatenate([u1[rng.permutation(n1)[:shared]], _sift_u8(rng, n2 - shared)])
+    u2 = src[rng.permutation(n2)].astype(np.float64) + rng.normal(0, noise, (n2, 128))
+    return u1, np.clip(np.round(u2), 0, 255).astype(np.uint8)
+
+
+def _near_threshold(s1, s2, opts, atol=SIM_ATOL):
+    """Rows whose accept decision a 1e-6 change of a similarity could flip."""
+    dist1 = np.arccos(np.clip(s1, -1, 1))
+    dist2 = np.arccos(np.clip(s2, -1, 1))
+    return (np.abs(dist1 - opts.max_distance) < 10 * atol) | (
+        np.abs(dist1 - opts.max_ratio * dist2) < 10 * atol
+    )
+
+
+@pytest.mark.parametrize("n1,n2", [(96, 160), (300, 257)])
+def test_top2_u8_reference_matches_float_reference(n1, n2):
+    """match_top2_u8_reference against match_top2_reference on the normalized
+    copies of the same uint8 descriptors: similarities within 1e-6 (the
+    float version rounds every normalized entry, the uint8 one only the
+    final scale), indices equal wherever best and second differ by more."""
+    rng = np.random.default_rng(n1)
+    B = 2
+    pairs = [_pair_u8(rng, n1, n2) for _ in range(B)]
+    u1 = T(np.stack([p[0] for p in pairs]))
+    u2 = T(np.stack([p[1] for p in pairs]))
+    v2 = T((rng.uniform(size=(B, n2)) > 0.2).astype(np.float32))
+    inv1, inv2 = match_kernel.inverse_norms(u1), match_kernel.inverse_norms(u2)
+    s1, s2, idx = match_kernel.match_top2_u8_reference(u1, u2, inv1, inv2, v2)
+    r1, r2, ridx = match_kernel.match_top2_reference(
+        matching_t.normalize_descriptors(u1), matching_t.normalize_descriptors(u2), v2
+    )
+    np.testing.assert_allclose(s1.numpy(), r1.numpy(), atol=SIM_ATOL)
+    np.testing.assert_allclose(s2.numpy(), r2.numpy(), atol=SIM_ATOL)
+    sep = (r1 - r2).numpy() > SIM_ATOL
+    np.testing.assert_array_equal(idx.numpy()[sep], ridx.numpy()[sep])
+    assert idx.dtype == torch.int32 and sep.mean() > 0.9
+
+
+@pytest.mark.parametrize("cross_check", [True, False])
+def test_match_descriptors_u8_parity_with_jax(cross_check):
+    """The uint8 match_descriptors against the JAX match_descriptors on the
+    JAX-normalized copies of the same uint8 descriptors: accept decisions
+    and indices equal except within 1e-5 of a threshold or at a near-tie."""
+    rng = np.random.default_rng(16)
+    B, n1, n2 = 3, 120, 150
+    pairs = [_pair_u8(rng, n1, n2) for _ in range(B)]
+    u1 = np.stack([p[0] for p in pairs])
+    u2 = np.stack([p[1] for p in pairs])
+    v1 = np.ones((B, n1), np.float32)
+    v2 = np.ones((B, n2), np.float32)
+    v1[:, 100:] = 0.0
+    u1[:, 100:] = 0  # padding rows, as the matcher's chunks have
+    v2[1, 130:] = 0.0
+    opts_t = matching_t.MatchingOptions(cross_check=cross_check)
+    opts_j = matching_j.MatchingOptions(cross_check=cross_check)
+    inv1, inv2 = match_kernel.inverse_norms(T(u1)), match_kernel.inverse_norms(T(u2))
+    idx, ok, s1 = (
+        x.numpy() for x in matching_t.match_descriptors_u8(T(u1), T(u2), inv1, inv2, T(v1), T(v2), opts_t)
+    )
+    _, s2, _ = match_kernel.match_top2_u8_reference(T(u1), T(u2), inv1, inv2, T(v2))
+    for b in range(B):
+        ji, jok, js1 = (
+            np.asarray(x)
+            for x in matching_j.match_descriptors(
+                matching_j.normalize_descriptors(jnp.asarray(u1[b])),
+                matching_j.normalize_descriptors(jnp.asarray(u2[b])),
+                jnp.asarray(v1[b]), jnp.asarray(v2[b]), opts_j,
+            )
+        )
+        rows = v1[b] > 0
+        exempt = _near_threshold(s1[b], s2[b].numpy(), opts_t) | ((s1[b] - s2[b].numpy()) <= SIM_ATOL)
+        np.testing.assert_array_equal(ok[b][~exempt], jok[~exempt])
+        np.testing.assert_array_equal(idx[b][rows & ~exempt], ji[rows & ~exempt])
+        np.testing.assert_allclose(s1[b][rows], js1[rows], atol=SIM_ATOL)
+        assert ok[b].sum() > 40 and exempt[rows].mean() < 0.05
+        # rows that are not valid report (0, False, -2)
+        assert not ok[b][~rows].any() and (idx[b][~rows] == 0).all() and (s1[b][~rows] == -2).all()
+
+
+def test_similarity_u8_is_exact_and_transposes_bit_for_bit():
+    """The integer dot product has no summation order: the similarity equals
+    the int64 dot product scaled once, and the transposed call gives the
+    transposed matrix bit for bit, so the cross-check cannot flip."""
+    rng = np.random.default_rng(17)
+    u1, u2 = _pair_u8(rng, 70, 90)
+    u1[5] = 255  # the largest dot products stay exact: 255^2 * 128 < 2^24
+    u2[9] = 255
+    inv1, inv2 = match_kernel.inverse_norms(T(u1)), match_kernel.inverse_norms(T(u2))
+    sim = match_kernel.similarity_u8(T(u1), T(u2), inv1, inv2)
+    simT = match_kernel.similarity_u8(T(u2), T(u1), inv2, inv1)
+    assert torch.equal(sim, simT.mT)
+    dot = u1.astype(np.int64) @ u2.astype(np.int64).T
+    want = dot.astype(np.float32) * (inv1.numpy()[:, None] * inv2.numpy()[None, :])
+    np.testing.assert_array_equal(sim.numpy(), want)
+    # both directions of the cross-check see the same floats
+    s1, _, idx = match_kernel.match_top2_u8(T(u1), T(u2), inv1, inv2, T(np.ones(90, np.float32)))
+    t1, _, tidx = match_kernel.match_top2_u8(T(u2), T(u1), inv2, inv1, T(np.ones(70, np.float32)))
+    mutual = tidx[idx.long()] == torch.arange(70)
+    assert mutual.sum() > 30 and torch.equal(t1[idx.long()][mutual], s1[mutual])
+
+
+def test_top2_u8_ties_masks_and_zero_rows():
+    """Duplicated columns resolve to the lowest; a run of invalid columns as
+    long as a kernel tile counts as -2 and is never picked; all columns
+    invalid gives (-2, -2, 0); a zero-norm row has similarity 0 to every
+    column, as the normalized float path gives; rows masked by valid1
+    report (-2, -2, 0)."""
+    rng = np.random.default_rng(18)
+    u2 = _sift_u8(rng, 400)
+    u2[300] = u2[7]  # exact duplicate at a higher column
+    u1 = np.concatenate([u2[[7, 300, 3]], np.zeros((1, 128), np.uint8)])
+    inv1, inv2 = match_kernel.inverse_norms(T(u1)), match_kernel.inverse_norms(T(u2))
+    assert float(inv1[3]) == 0.0
+    v2 = np.ones(400, np.float32)
+    s1, s2, idx = match_kernel.match_top2_u8(T(u1), T(u2), inv1, inv2, T(v2))
+    assert idx.tolist() == [7, 7, 3, 0]
+    assert float(s1[0]) == float(s2[0])  # the twin is the second best
+    assert float(s1[3]) == 0.0 and float(s2[3]) == 0.0
+    f1, f2, _ = match_kernel.match_top2_reference(
+        matching_t.normalize_descriptors(T(u1)), matching_t.normalize_descriptors(T(u2)), T(v2)
+    )
+    assert float(f1[3]) == 0.0 and float(f2[3]) == 0.0
+    v2[0:256] = 0.0  # two whole 128-column tiles, with columns 3 and 7 in them
+    s1, s2, idx = match_kernel.match_top2_u8(T(u1), T(u2), inv1, inv2, T(v2))
+    assert idx[0] == 300 and idx[1] == 300 and idx[2] >= 256
+    s1, s2, idx = match_kernel.match_top2_u8(T(u1), T(u2), inv1, inv2, T(np.zeros(400, np.float32)))
+    assert s1.tolist() == [-2.0] * 4 and s2.tolist() == [-2.0] * 4 and idx.tolist() == [0] * 4
+    v1 = T(np.asarray([1, 0, 1, 0], np.float32))
+    s1, s2, idx = match_kernel.match_top2_u8(T(u1), T(u2), inv1, inv2, T(np.ones(400, np.float32)), v1)
+    assert idx.tolist() == [7, 0, 3, 0] and s1[1] == -2 and s2[1] == -2 and s1[3] == -2
+
+
+def test_top2_u8_wrapper_checks_inputs():
+    u = torch.zeros((4, 128), dtype=torch.uint8)
+    inv = torch.zeros(4)
+    ok = torch.ones(4)
+    with pytest.raises(ValueError):
+        match_kernel.match_top2_u8(u.float(), u.float(), inv, inv, ok)
+    with pytest.raises(ValueError):
+        match_kernel.match_top2_u8(u, torch.zeros((4, 64), dtype=torch.uint8), inv, inv, ok)
+    with pytest.raises(ValueError):
+        match_kernel.match_top2_u8(u, u, inv, torch.zeros(5), ok)
+    with pytest.raises(ValueError):
+        match_kernel.match_top2_u8(u, u, inv, inv, ok, torch.ones(3))
+    with pytest.raises(ValueError):
+        match_kernel.match_top2_u8(u, u, inv.double(), inv.double(), ok)
+    with pytest.raises(ValueError):
+        match_kernel.match_top2_u8(u, torch.zeros((0, 128), dtype=torch.uint8), inv, torch.zeros(0), torch.ones(0))
+
+
+@pytest.mark.parametrize("blocks,n2,tile,wanted", [(256, 2048, 128, 1), (64, 8192, 128, 4), (8, 1537, 128, 33), (1, 100, 64, 528)])
+def test_split_columns_covers_the_columns(blocks, n2, tile, wanted):
+    """The column split the wrappers hand to the kernels: tile-multiple
+    chunks that cover every column, no empty split."""
+    chunk, splits = match_kernel.split_columns(n2, tile, wanted)
+    assert chunk % tile == 0 and splits >= 1
+    assert splits * chunk >= n2 > (splits - 1) * chunk
+    assert splits <= max(1, wanted)
