@@ -2,11 +2,12 @@
 
 Port of colmap_pcd_tpu/cli.py. Flags use the reference's namespaced names
 (--Mapper.init_image_x, --SiftMatching.max_ratio, ..., utils/config.py).
-Ported: `mapper` (lidar-seeded or classic two-view init) and the matchers
+Ported: `feature_extractor`, `feature_importer`, the matchers
 `exhaustive_matcher`, `sequential_matcher`, `transitive_matcher` and
-`matches_importer`. Every other command of the JAX package's registry
-reports that it is not yet ported and returns 1. Matching and mapping run
-on CUDA when present, else on the CPU.
+`matches_importer`, and `mapper` (lidar-seeded or classic two-view init).
+Every other command of the JAX package's registry reports that it is not
+yet ported and returns 1. Extraction, matching and mapping run on CUDA when
+present, else on the CPU.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ from .utils.config import OptionManager
 
 # the rest of the JAX package's command registry
 _NOT_PORTED = (
-    "feature_extractor", "vocab_tree_matcher", "spatial_matcher",
+    "vocab_tree_matcher", "spatial_matcher",
     "vocab_tree_builder", "vocab_tree_retriever",
     "hierarchical_mapper", "point_triangulator", "bundle_adjuster",
     "rig_bundle_adjuster", "model_converter", "model_analyzer",
@@ -28,7 +29,7 @@ _NOT_PORTED = (
     "database_cleaner", "database_merger", "image_undistorter",
     "patch_match_stereo", "stereo_fusion", "poisson_mesher", "delaunay_mesher",
     "database_creator", "automatic_reconstructor", "model_viewer",
-    "color_extractor", "feature_importer", "image_deleter", "image_filterer",
+    "color_extractor", "image_deleter", "image_filterer",
     "image_rectifier", "image_registrator", "image_undistorter_standalone",
     "point_filtering", "project_generator", "gui",
 )
@@ -177,6 +178,46 @@ def cmd_mapper(argv):
     return 0 if manager.size() > 0 else 1
 
 
+def _reader_config(om):
+    from .models.feature_pipeline import ImageReaderConfig
+
+    return ImageReaderConfig(
+        camera_model=om.image_reader.camera_model,
+        single_camera=om.image_reader.single_camera,
+        camera_params=om.image_reader.camera_params,
+        default_focal_factor=om.image_reader.default_focal_length_factor,
+    )
+
+
+def cmd_feature_extractor(argv):
+    om, _ = _opt(argv)
+    from .models.feature_pipeline import run_feature_extractor
+
+    n = run_feature_extractor(om.database_path, om.image_path, om.sift_extraction, _reader_config(om))
+    print(f"Extracted features for {n} images")
+    return 0
+
+
+def cmd_feature_importer(argv):
+    """Import COLMAP text feature files (RunFeatureImporter, exe/feature.cc:177)."""
+    import_path = None
+    filtered = []
+    it = iter(argv)
+    for a in it:
+        if a == "--import_path":
+            import_path = next(it)
+        elif a == "--image_list_path":
+            next(it)  # parsed and unused, as in the JAX package's CLI
+        else:
+            filtered.append(a)
+    om, _ = _opt(filtered)
+    from .models.feature_pipeline import run_feature_importer
+
+    n = run_feature_importer(om.database_path, om.image_path, import_path, _reader_config(om))
+    print(f"Imported features for {n} images")
+    return 0
+
+
 def cmd_exhaustive_matcher(argv):
     om, _ = _opt(argv)
     from .models.feature_pipeline import run_exhaustive_matcher
@@ -252,6 +293,8 @@ def cmd_matches_importer(argv):
 
 
 COMMANDS = {
+    "feature_extractor": cmd_feature_extractor,
+    "feature_importer": cmd_feature_importer,
     "mapper": cmd_mapper,
     "exhaustive_matcher": cmd_exhaustive_matcher,
     "sequential_matcher": cmd_sequential_matcher,

@@ -29,3 +29,12 @@ def resolve(device: str | torch.device | None = None) -> torch.device:
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {dev} requested but CUDA is not available")
     return dev
+
+
+def warm_linalg(device: torch.device) -> None:
+    """Load PyTorch's CUDA linear-algebra library on the calling thread. Its
+    lazy loader raises ("lazy wrapper should be called at most once") when
+    two threads reach it together, so code that is about to use linalg from
+    several threads calls this first, on the thread that starts them."""
+    if device.type == "cuda":
+        torch.linalg.eigh(torch.eye(2, device=device))

@@ -1,26 +1,34 @@
-"""Feature matching controllers over the database.
+"""Feature extraction + matching controllers over the database.
 
-Port of the matching half of colmap_pcd_tpu/models/feature_pipeline.py
-(parity with src/feature/matching.{h,cc}, the matcher controller family):
-each controller enumerates candidate pairs its own way, then a shared
-worker matches descriptors (uint8 as the database holds them, through the
-hand-written tensor-core top-2 kernel K1 on a CUDA device), verifies
-two-view geometry with the batched E/F/H LO-RANSAC
-banks, optionally re-matches guided by F, and writes `matches` and
-`two_view_geometries`.
+Port of colmap_pcd_tpu/models/feature_pipeline.py (parity with
+src/feature/extraction.{h,cc}, the SiftFeatureExtractor staged pipeline, and
+src/feature/matching.{h,cc}, the matcher controller family):
 
-Ported: exhaustive, sequential, transitive, image-pairs and feature-pairs
-(raw / inlier match import). Not ported yet (ROADMAP.md queue 1): SIFT
-extraction (`run_feature_extractor` raises), the spatial matcher,
-retrieval (the vocab-tree matcher, and the sequential matcher's loop
-detection, which raises). `use_pallas` is accepted and has no effect: on
-a CUDA device K1 is the matcher.
+  * extraction: IO-threaded read+resize -> one device SIFT stage
+    (`ops/sift.extract_batch` on uint8 uploads) -> one SQLite writer
+    (`utils/threading_utils.pipeline_map`, the resizer/extractor/writer
+    topology of extraction.h:50-148); `run_feature_importer` reads COLMAP
+    text feature files instead.
+  * matching: each controller enumerates candidate pairs its own way, then a
+    shared worker matches descriptors (uint8 as the database holds them,
+    through the hand-written tensor-core top-2 kernel K1 on a CUDA device),
+    verifies two-view geometry with the batched E/F/H LO-RANSAC banks,
+    optionally re-matches guided by F, and writes `matches` and
+    `two_view_geometries`.
+
+Ported matchers: exhaustive, sequential, transitive, image-pairs and
+feature-pairs (raw / inlier match import). Not ported yet (ROADMAP.md queue
+1): the spatial matcher and retrieval (the vocab-tree matcher, and the
+sequential matcher's loop detection, which raises). `use_pallas` is accepted
+and has no effect: on a CUDA device K1 is the matcher.
 """
 
 from __future__ import annotations
 
+import os
 import threading
 from collections import deque
+from dataclasses import dataclass
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -31,16 +39,198 @@ from ..ops import camera_models as cm
 from ..ops import match_kernel
 from ..ops import matching as matching_ops
 from ..ops import np_geom
-from ..utils.config import SiftMatchingConfig
+from ..ops import sift as sift_ops
+from ..utils import image as image_utils
+from ..utils.camera_database import exif_focal_length
+from ..utils.config import SiftExtractionConfig, SiftMatchingConfig
+from ..utils.threading_utils import pipeline_map
 from . import two_view as two_view_mod
 from .database import Database
 
 
-def run_feature_extractor(*args, **kwargs) -> int:
-    """SIFT extraction (RunFeatureExtractor) is not ported yet."""
-    raise NotImplementedError(
-        "SIFT extraction is not ported to the PyTorch package yet: ROADMAP.md queue 1 step 5"
+# images per device batch of the extractor
+_EXTRACT_BATCH = 8
+
+IMAGE_EXTS = (".jpg", ".jpeg", ".png", ".bmp", ".tif", ".tiff", ".ppm", ".pgm")
+
+
+@dataclass
+class ImageReaderConfig:
+    camera_model: str = "OPENCV"
+    single_camera: bool = True
+    camera_params: str = ""  # comma-separated; empty = default from EXIF-less prior
+    default_focal_factor: float = 1.2
+
+
+def list_images(image_path: str) -> list[str]:
+    names = []
+    for root, _, files in os.walk(image_path):
+        for f in sorted(files):
+            if f.lower().endswith(IMAGE_EXTS):
+                names.append(os.path.relpath(os.path.join(root, f), image_path))
+    return sorted(names)
+
+
+class _CameraAssigner:
+    """One camera per (model, size) with `single_camera`, else per image
+    (ImageReader semantics, base/image_reader.cc): known parameters from the
+    reader config, else an EXIF focal prior, else the default focal factor."""
+
+    def __init__(self, db: Database, reader: ImageReaderConfig):
+        self.db = db
+        self.reader = reader
+        self.model_id = cm.MODEL_IDS[reader.camera_model]
+        self.camera_ids: dict[tuple, int] = {}
+
+    def camera_id(self, name: str, W0: int, H0: int, exif_focal) -> int:
+        reader = self.reader
+        key = (reader.camera_model, W0, H0) if reader.single_camera else (name,)
+        if key not in self.camera_ids:
+            if reader.camera_params:
+                params = [float(x) for x in reader.camera_params.split(",")]
+                prior_focal = True
+            else:
+                f = exif_focal or reader.default_focal_factor * max(W0, H0)
+                prior_focal = exif_focal is not None
+                fi, fj, ci, cj = cm._FOCAL_IDX[self.model_id]
+                params = [0.0] * cm.NUM_PARAMS[self.model_id]
+                params[fi] = params[fj] = f
+                params[ci] = W0 / 2
+                params[cj] = H0 / 2
+            self.camera_ids[key] = self.db.add_camera(
+                self.model_id, W0, H0, params, prior_focal=prior_focal
+            )
+        return self.camera_ids[key]
+
+
+def run_feature_extractor(
+    database_path: str,
+    image_path: str,
+    extraction: SiftExtractionConfig = SiftExtractionConfig(),
+    reader: ImageReaderConfig = ImageReaderConfig(),
+    num_io_threads: int = 4,
+    device=None,
+) -> int:
+    """Extract SIFT for every image under image_path into the database.
+    Returns the number of images processed (RunFeatureExtractor parity,
+    exe/feature.cc:104). Runs on CUDA when present unless `device` says
+    otherwise."""
+    names = list_images(image_path)
+    if not names:
+        return 0
+    dev = device_mod.resolve(device)
+    db = Database(database_path)
+
+    opts = sift_ops.SiftOptions(
+        max_num_features=extraction.max_num_features,
+        num_octaves=extraction.num_octaves,
+        octave_resolution=extraction.octave_resolution,
+        first_octave=extraction.first_octave,
+        peak_threshold=extraction.peak_threshold,
+        edge_threshold=extraction.edge_threshold,
+        upright=extraction.upright,
+        estimate_affine_shape=extraction.estimate_affine_shape,
+        domain_size_pooling=extraction.domain_size_pooling,
+        dsp_min_scale=extraction.dsp_min_scale,
+        dsp_max_scale=extraction.dsp_max_scale,
+        dsp_num_scales=extraction.dsp_num_scales,
     )
+    cameras = _CameraAssigner(db, reader)
+
+    def produce(batch):
+        """IO threads: read, EXIF focal prior, resize."""
+        out = []
+        for name in batch:
+            path = os.path.join(image_path, name)
+            img = image_utils.imread_gray_u8(path)
+            H0, W0 = img.shape
+            exif_focal = None if reader.camera_params else exif_focal_length(path, W0, H0)
+            img, scale = image_utils.resize_max(img, extraction.max_image_size)
+            out.append((img, scale, (W0, H0), exif_focal))
+        return out
+
+    def device_stage(batch, data):
+        """Caller thread: upload uint8, extract, and fetch numpy before the
+        stage ends, so the writer thread never waits on the device. Images
+        of one shape go as one batch; a group is never padded."""
+        shapes = {d[0].shape for d in data}
+        groups = [list(range(len(data)))] if len(shapes) == 1 else [[i] for i in range(len(data))]
+        fetched = [None] * len(data)
+        for group in groups:
+            imgs = torch.as_tensor(np.stack([data[i][0] for i in group]), device=dev)
+            kp, desc, _score, valid = sift_ops.extract_batch(imgs, opts)
+            kp, desc, valid = (
+                t.cpu().numpy() for t in (kp, sift_ops.descriptors_to_uint8(desc), valid)
+            )
+            for row, i in enumerate(group):
+                fetched[i] = (kp[row][valid[row]], desc[row][valid[row]])
+        return fetched, data
+
+    def consume(batch, staged):
+        """Writer thread: back to original-image scale, then SQLite."""
+        fetched, data = staged
+        for name, (kp, desc), (_img, scale, (W0, H0), exif_focal) in zip(batch, fetched, data):
+            if scale != 1.0:
+                kp[:, :3] /= scale
+            iid = db.add_image(name, cameras.camera_id(name, W0, H0, exif_focal))
+            db.write_keypoints(iid, kp[:, :4])
+            db.write_descriptors(iid, desc)
+            db.commit()
+
+    batches = [names[i : i + _EXTRACT_BATCH] for i in range(0, len(names), _EXTRACT_BATCH)]
+    try:
+        pipeline_map(batches, produce, consume, device_stage, num_io_threads=num_io_threads)
+    finally:
+        db.close()
+    return len(names)
+
+
+def run_feature_importer(
+    database_path: str,
+    image_path: str,
+    import_path: str,
+    reader: ImageReaderConfig = ImageReaderConfig(),
+) -> int:
+    """Import pre-extracted features from COLMAP text files
+    (FeatureImporter, feature/extraction.cc + exe/feature.cc:177
+    RunFeatureImporter): for every image under image_path, reads
+    `<import_path>/<name>.txt` with header "NUM DIM" and rows
+    `x y scale orientation d1..dDIM` (uint8 descriptors). Camera assignment
+    follows the same reader rules as extraction."""
+    from PIL import Image as PILImage
+
+    names = list_images(image_path)
+    db = Database(database_path)
+    cameras = _CameraAssigner(db, reader)
+    n_done = 0
+    for name in names:
+        feat_path = os.path.join(import_path, name + ".txt")
+        if not os.path.exists(feat_path):
+            print(f"skipping {name}: no feature file {feat_path}")
+            continue
+        with open(feat_path) as fh:
+            header = fh.readline().split()
+            num, dim = int(header[0]), int(header[1])
+            rows = np.loadtxt(fh, dtype=np.float64, ndmin=2)
+        if rows.size == 0:
+            kp = np.zeros((0, 4), np.float32)
+            desc = np.zeros((0, dim), np.uint8)
+        else:
+            if rows.shape[1] != 4 + dim:
+                raise ValueError(f"{feat_path}: rows of {rows.shape[1]} values, header says 4 + {dim}")
+            kp = rows[:num, :4].astype(np.float32)
+            desc = np.clip(np.round(rows[:num, 4:]), 0, 255).astype(np.uint8)
+        path = os.path.join(image_path, name)
+        with PILImage.open(path) as im:
+            W0, H0 = im.size
+        exif_focal = None if reader.camera_params else exif_focal_length(path, W0, H0)
+        iid = db.add_image(name, cameras.camera_id(name, W0, H0, exif_focal))
+        db.write_keypoints(iid, kp)
+        db.write_descriptors(iid, desc)
+        db.commit()
+        n_done += 1
+    db.close()
+    return n_done
 
 
 class _MatchWorker:
@@ -67,10 +257,8 @@ class _MatchWorker:
         self._dev_lock = threading.Lock()
         self.cameras = db.cameras()
         self.images = db.images()
-        if self.device.type == "cuda":
-            # load PyTorch's CUDA linear-algebra library on this thread: its
-            # lazy loader raises when the pool's two threads race to it
-            torch.linalg.eigh(torch.eye(2, device=self.device))
+        # the pool's two threads would race to PyTorch's lazy linalg loader
+        device_mod.warm_linalg(self.device)
 
     # ------------------------------------------------------------ features
     def _feats_host(self, image_id: int):

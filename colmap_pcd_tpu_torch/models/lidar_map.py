@@ -21,6 +21,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from .. import device as device_mod
 from ..io import ply as ply_io
 from ..ops import camera_models as cm
 from ..ops import nn_kernel
@@ -86,7 +87,9 @@ class LidarMap:
 
     @classmethod
     def from_grid(cls, xyz, nrm, cell_keys, cell_start, cell_count, opts, device=None):
-        """A map from points already sorted by grid cell and their CSR table."""
+        """A map from points already sorted by grid cell and their CSR table,
+        resident on `device` (None: CUDA when present, else the CPU)."""
+        device = device_mod.resolve(device)
         xyz = np.ascontiguousarray(xyz, np.float32)
         nrm = np.ascontiguousarray(nrm, np.float32)
         d_points = torch.as_tensor(xyz, device=device)

@@ -65,6 +65,23 @@ def det3(M: Tensor) -> Tensor:
     return a * (e * i - f * h) - b * (d * i - f * g) + c * (d * h - e * g)
 
 
+def solve3(M: Tensor, b: Tensor) -> Tensor:
+    """Closed-form solution x of M x = b for M [..., 3, 3], b [..., 3]
+    (adjugate over determinant): no library call and no host sync, where a
+    batched LU of thousands of 3x3 systems would cost both."""
+    a, b_, c = M[..., 0, 0], M[..., 0, 1], M[..., 0, 2]
+    d, e, f = M[..., 1, 0], M[..., 1, 1], M[..., 1, 2]
+    g, h, i = M[..., 2, 0], M[..., 2, 1], M[..., 2, 2]
+    c00, c01, c02 = e * i - f * h, f * g - d * i, d * h - e * g
+    det = a * c00 + b_ * c01 + c * c02
+    x0, x1, x2 = b[..., 0], b[..., 1], b[..., 2]
+    return torch.stack([
+        c00 * x0 + (c * h - b_ * i) * x1 + (b_ * f - c * e) * x2,
+        c01 * x0 + (a * i - c * g) * x1 + (c * d - a * f) * x2,
+        c02 * x0 + (b_ * g - a * h) * x1 + (a * e - b_ * d) * x2,
+    ], dim=-1) / det[..., None]
+
+
 def _homog(uv: Tensor) -> Tensor:
     return torch.cat([uv, torch.ones_like(uv[..., :1])], dim=-1)
 

@@ -226,15 +226,9 @@ def write_world(rec: Reconstruction, graph: CorrespondenceGraph, lmap: LidarMap,
     the paths."""
     import os
 
-    from colmap_pcd_tpu_torch.io import ply as ply_io
     from colmap_pcd_tpu_torch.models.database import Database
-    from colmap_pcd_tpu_torch.models.lidar_map import camera_to_lidar_frame
 
-    paths = {
-        "database": os.path.join(out_dir, "database.db"),
-        "lidar": os.path.join(out_dir, "lidar.ply"),
-        "poses": os.path.join(out_dir, "pose_prior.ply"),
-    }
+    paths = {"database": os.path.join(out_dir, "database.db")}
     db = Database(paths["database"])
     for cid, cam in rec.cameras.items():
         db.add_camera(cam.model_id, cam.width, cam.height, cam.params, camera_id=cid)
@@ -252,9 +246,23 @@ def write_world(rec: Reconstruction, graph: CorrespondenceGraph, lmap: LidarMap,
     db.commit()
     db.close()
 
-    ply_io.write_ply(
-        paths["lidar"], camera_to_lidar_frame(lmap.points), camera_to_lidar_frame(lmap.normals)
-    )
+    paths.update(write_lidar_files(lmap.points, lmap.normals, gt, out_dir, prior_ids))
+    return paths
+
+
+def write_lidar_files(points, normals, gt, out_dir: str, prior_ids=(1,)) -> dict:
+    """The map as a lidar-frame PLY with normals and a pose-prior file
+    holding the ground truth of `prior_ids`. Returns their paths."""
+    import os
+
+    from colmap_pcd_tpu_torch.io import ply as ply_io
+    from colmap_pcd_tpu_torch.models.lidar_map import camera_to_lidar_frame
+
+    paths = {
+        "lidar": os.path.join(out_dir, "lidar.ply"),
+        "poses": os.path.join(out_dir, "pose_prior.ply"),
+    }
+    ply_io.write_ply(paths["lidar"], camera_to_lidar_frame(points), camera_to_lidar_frame(normals))
     # one row per image (1-based order): x y z roll pitch yaw in the lidar
     # frame, nan where no prior is given (LoadPose's format)
     rows = []
@@ -268,6 +276,39 @@ def write_world(rec: Reconstruction, graph: CorrespondenceGraph, lmap: LidarMap,
         for row in rows:
             f.write(" ".join("nan" if np.isnan(v) else f"{v:.9g}" for v in row) + "\n")
     return paths
+
+
+def make_trajectory(n_images: int, step: float = 0.8) -> list:
+    """The forward corridor trajectory of the pixel worlds (the JAX
+    package's bench and tests/test_full_stack.py): world-to-camera (q, t)
+    per image, swaying a little and yawing by up to 0.03 rad."""
+    gt = []
+    for i in range(n_images):
+        c = np.asarray([0.5 * np.sin(i * 0.6), 0.25 * np.cos(i * 0.4), i * step])
+        yaw = 0.03 * np.sin(i * 0.9)
+        q_wc = np.asarray([np.cos(yaw / 2), 0.0, np.sin(yaw / 2), 0.0])
+        q_cw = np_geom.quat_conj(q_wc)
+        gt.append((q_cw, -np_geom.quat_to_rotmat(q_cw) @ c))
+    return gt
+
+
+def render_images(img_dir: str, gt, width: int, height: int, focal: float,
+                  model_id=None, params=None, workers: int = 1) -> None:
+    """Ray-cast the corridor for every pose into `img_dir` as v0000.png ...
+    (uint8 grayscale), on `workers` threads."""
+    import os
+    from concurrent.futures import ThreadPoolExecutor
+
+    from PIL import Image as PILImage
+
+    from render_torch import render_corridor
+
+    def one(i):
+        im = render_corridor(*gt[i], width, height, focal, model_id=model_id, params=params)
+        PILImage.fromarray((im * 255).astype(np.uint8)).save(os.path.join(img_dir, f"v{i:04d}.png"))
+
+    with ThreadPoolExecutor(max_workers=workers) as ex:
+        list(ex.map(one, range(len(gt))))
 
 
 def mapper_argv(paths: dict, out_dir: str, *extra: str) -> list:

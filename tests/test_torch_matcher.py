@@ -29,10 +29,9 @@ def _world(tmp_path, seed, n_images, n_points, noise_px=0.3):
 
 
 def test_unported_matcher_options_raise(tmp_path):
-    """Extraction and loop detection point at the roadmap instead of
-    running half a path."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pipeline_t.run_feature_extractor(str(tmp_path / "db.db"), str(tmp_path))
+    """Loop detection points at the roadmap instead of running half a path
+    (extraction is ported: on a directory without images it extracts none)."""
+    assert pipeline_t.run_feature_extractor(str(tmp_path / "db.db"), str(tmp_path)) == 0
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         pipeline_t.run_sequential_matcher(str(tmp_path / "db.db"), MatchingConfigT(), loop_detection=True)
 
