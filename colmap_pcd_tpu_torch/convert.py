@@ -11,6 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import device as device_mod
 from .models.lidar_map import LidarMap
 from .ops.ba import BAProblem
 from .ops.pointcloud import ProjOptions
@@ -33,7 +34,9 @@ def lidar_map_from_numpy(points, normals, cell_keys, cell_start, cell_count, opt
 def ba_problem_from_numpy(device=None, **fields) -> BAProblem:
     """A BAProblem from the JAX BAProblem's fields as numpy arrays
     (`{k: np.asarray(v) for k, v in problem._asdict().items()}`): integer
-    fields become int64, float fields float32, on `device`."""
+    fields become int64, float fields float32, on `device` (None: CUDA;
+    the CPU only by name)."""
+    device = device_mod.resolve(device)
     missing = set(BAProblem._fields) - set(fields)
     if missing:
         raise ValueError(f"missing BAProblem fields: {sorted(missing)}")

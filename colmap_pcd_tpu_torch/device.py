@@ -20,14 +20,15 @@ def set_numerics_policy() -> None:
 
 
 def resolve(device: str | torch.device | None = None) -> torch.device:
-    """The device to compute on. None or "auto" picks CUDA when present and
-    the CPU otherwise; a CUDA device asked for by name must exist — this
-    raises instead of falling back to the CPU."""
-    if device is None or device == "auto":
-        return torch.device("cuda" if torch.cuda.is_available() else "cpu")
-    dev = torch.device(device)
+    """The device to compute on. None and "auto" mean CUDA; the CPU is used
+    only when asked for by name ("cpu"). Where CUDA is meant and absent this
+    raises: the port never falls back to the CPU on its own."""
+    dev = torch.device("cuda" if device is None or device == "auto" else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {dev} requested but CUDA is not available")
+        raise RuntimeError(
+            f"device {dev} requested but CUDA is not available; pass device='cpu' "
+            "(on the command line: --device cpu) to compute on the CPU"
+        )
     return dev
 
 

@@ -90,13 +90,14 @@ class IncrementalMapperController:
         lidar_map: LidarMap | None = None,
         pose_priors=None,
         pair_feed=None,
+        device=None,
     ):
         self.rec = rec
         self.base_rec = rec  # pristine dataset skeleton for multi-model trials
         self.graph = graph
         self.opts = mapper_options or MapperOptions()
         self.copts = controller_options or ControllerOptions()
-        self.mapper = IncrementalMapper(rec, graph, lidar_map, pose_priors)
+        self.mapper = IncrementalMapper(rec, graph, lidar_map, pose_priors, device)
         self.state = MapperState()
         self._imgs_at_last_global: set[int] = set()
         self.callbacks = []  # called after each registration
@@ -538,10 +539,12 @@ class BundleAdjustmentController:
         lidar_map: LidarMap | None = None,
         refine_intrinsics: bool = False,
         refine_extrinsics: bool = True,
+        device=None,
     ):
         self.rec = rec
         self.opts = mapper_options or MapperOptions()
         self.lidar_map = lidar_map
+        self.device = device
         self.refine_intrinsics = refine_intrinsics
         self.refine_extrinsics = refine_extrinsics
 
@@ -554,7 +557,7 @@ class BundleAdjustmentController:
         if rec.num_reg_images < 2:
             return False
         rec.clear_lidar_points()
-        mapper = IncrementalMapper(rec, CorrespondenceGraph(), self.lidar_map)
+        mapper = IncrementalMapper(rec, CorrespondenceGraph(), self.lidar_map, device=self.device)
 
         if self.lidar_map is not None and opts.if_add_lidar_constraint:
             # per-point NN with gates dist2plane > 1 | dist2point > 2 dropped

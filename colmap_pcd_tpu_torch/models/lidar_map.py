@@ -88,7 +88,7 @@ class LidarMap:
     @classmethod
     def from_grid(cls, xyz, nrm, cell_keys, cell_start, cell_count, opts, device=None):
         """A map from points already sorted by grid cell and their CSR table,
-        resident on `device` (None: CUDA when present, else the CPU)."""
+        resident on `device` (None: CUDA; the CPU only by name)."""
         device = device_mod.resolve(device)
         xyz = np.ascontiguousarray(xyz, np.float32)
         nrm = np.ascontiguousarray(nrm, np.float32)

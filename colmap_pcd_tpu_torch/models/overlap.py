@@ -115,8 +115,7 @@ def run_overlapped_frontend(
 ) -> tuple[PairFeed, threading.Thread, threading.Thread]:
     """Start extraction + incremental matching threads; returns the feed and
     both threads (join them for stage timing; the feed is marked done when
-    matching finishes). Both run on CUDA when present unless `device` says
-    otherwise."""
+    matching finishes). Both run on CUDA unless `device` is "cpu"."""
     feed = PairFeed()
     dev = device_mod.resolve(device)
     # the matcher's workers and the caller's mapper are about to use linalg

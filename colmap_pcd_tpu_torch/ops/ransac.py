@@ -1,8 +1,8 @@
 """Batched RANSAC: the hypothesis bank as one batched solve, not a loop.
 
 Port of colmap_pcd_tpu/ops/ransac.py (`_draw_samples`, `_score`,
-`ransac_pnp`, and the two-view banks `_ransac_two_view`,
-`ransac_{fundamental,essential,homography}`):
+`ransac_pnp`, the two-view banks `_ransac_two_view`,
+`ransac_{fundamental,essential,homography}`, and `ransac_similarity`):
 
   1. draw the minimal samples at once (uniform over the valid rows, or
      PROSAC-ordered when a per-row quality is given),
@@ -301,3 +301,50 @@ def ransac_homography(uv1, uv2, valid, generators, opts: RansacOptions = RansacO
         solvers.homography_dlt, solvers.homography_transfer_error, 4, quality,
         sample_idx=sample_idx,
     )
+
+
+class SimilarityResult(NamedTuple):
+    q: Tensor
+    t: Tensor
+    s: Tensor
+    inlier_mask: Tensor
+    num_inliers: Tensor
+
+
+def ransac_similarity(
+    src: Tensor,  # [N,3]
+    dst: Tensor,  # [N,3]
+    valid: Tensor,  # [N]
+    generator: torch.Generator | None,
+    opts: RansacOptions = RansacOptions(),
+    sample_idx: Tensor | None = None,
+) -> SimilarityResult:
+    """Robust 3D similarity (sim3) from point correspondences: minimal-3
+    Umeyama hypothesis bank + Umeyama LO refit on inliers. max_error is the
+    Euclidean residual in destination units. Mirrors the reference's
+    Reconstruction::AlignRobust (RANSAC over SimilarityTransformEstimator<3,
+    true> on projection centers, used by RunModelAligner). sample_idx
+    [H,3] replaces the random draw (tests)."""
+    idx = _draw_samples(generator, valid, opts.num_hypotheses, 3) if sample_idx is None else sample_idx
+    qs, ts, ss = solvers.umeyama(src[idx], dst[idx], with_scale=True)  # [H,4], [H,3], [H]
+    ok = valid > 0
+
+    def resid(q, t, s):  # squared residual of every row, batched over hypotheses
+        pred = s[..., None, None] * se3.quat_rotate(q[..., None, :], src) + t[..., None, :]
+        return torch.sum((pred - dst) ** 2, dim=-1)
+
+    thr2 = opts.max_error**2
+    n_in, score = _score(resid(qs, ts, ss), valid, thr2)
+    best = torch.argmax(score)
+    q_b, t_b, s_b, best_in = qs[best], ts[best], ss[best], n_in[best]
+    for _ in range(opts.lo_rounds):
+        inl = (resid(q_b, t_b, s_b) < thr2) & ok
+        q_n, t_n, s_n = solvers.umeyama(src, dst, mask=inl, with_scale=True)
+        n_n = torch.sum((resid(q_n, t_n, s_n) < thr2) & ok)
+        better = n_n >= best_in
+        q_b = torch.where(better, q_n, q_b)
+        t_b = torch.where(better, t_n, t_b)
+        s_b = torch.where(better, s_n, s_b)
+        best_in = torch.maximum(n_n, best_in)
+    mask = (resid(q_b, t_b, s_b) < thr2) & ok
+    return SimilarityResult(q_b, t_b, s_b, mask, torch.sum(mask))

@@ -338,3 +338,25 @@ def classic_mapper_argv(paths: dict, out_dir: str, init=(1, 3), *extra: str) -> 
         "--output_path", out_dir,
         *extra,
     ]
+
+
+def corridor_ba_problem(rng, n_cams: int):
+    """tests/test_ba_pcg.py's corridor in numpy: camera i at (i, 0, 0)
+    looking +z at 4 points per camera 8-12 m ahead, each seen by the
+    cameras within 3 m of it (tracks of at most 7), identity rotations, a
+    PINHOLE camera (f 500, 640x480). Returns (qs, ts, intr [12], points,
+    obs_cam, obs_pt, obs_uv) of the noiseless truth."""
+    n_pts = n_cams * 4
+    pts = np.stack(
+        [rng.uniform(0, n_cams, n_pts), rng.uniform(-2, 2, n_pts), rng.uniform(8, 12, n_pts)], axis=-1
+    ).astype(np.float32)
+    f, cx, cy = 500.0, 320.0, 240.0
+    intr = np.pad(np.asarray([f, f, cx, cy], np.float32), (0, cm.MAX_PARAMS - 4))
+    qs = np.tile(np.array([1.0, 0, 0, 0], np.float32), (n_cams, 1))
+    ts = np.stack([-np.arange(n_cams, dtype=np.float32), np.zeros(n_cams, np.float32),
+                   np.zeros(n_cams, np.float32)], axis=-1)
+    vis = np.abs(pts[None, :, 0] - np.arange(n_cams, dtype=np.float32)[:, None]) < 3.0  # [C,P]
+    oc, op = np.nonzero(vis)
+    xc = pts[op] + ts[oc]  # R = I
+    ouv = np.stack([f * xc[:, 0] / xc[:, 2] + cx, f * xc[:, 1] / xc[:, 2] + cy], -1)
+    return qs, ts, intr, pts, oc.astype(np.int32), op.astype(np.int32), ouv.astype(np.float32)

@@ -134,9 +134,17 @@ def test_solve_parity_refining_intrinsics():
 
 
 def test_pcg_tier_raises():
+    """The PCG tier raised NotImplementedError until it was ported. Now it
+    solves without raising: the cost falls as the dense tier's does, and
+    the CG blocks' host reads are counted beside the LM loop's
+    (tests/test_torch_sfm_tools.py holds it to the dense tier and to JAX)."""
     pt = _port(_problem(PINHOLE))
-    with pytest.raises(NotImplementedError, match="PCG"):
-        ba_t.solve(pt, ba_t.BAConfig(camera_solver="pcg"))
+    dense = ba_t.solve(pt, ba_t.BAConfig(camera_solver="dense", max_iterations=10))
+    pcg = ba_t.solve(pt, ba_t.BAConfig(camera_solver="pcg", max_iterations=10))
+    assert ba_t.uses_pcg(pt, ba_t.BAConfig(camera_solver="pcg"))
+    assert float(pcg.final_cost) < 0.5 * float(pcg.initial_cost)
+    np.testing.assert_allclose(float(pcg.final_cost), float(dense.final_cost), rtol=1e-2)
+    assert pcg.host_syncs > pcg.iterations
 
 
 def test_reprojection_errors_parity():

@@ -32,6 +32,7 @@ _SMALL_WORLD_FLAGS = (
     "--Mapper.abs_pose_min_num_inliers", "15",
     "--Mapper.init_min_num_inliers", "50",
     "--Mapper.multiple_models", "0",
+    "--device", "cpu",
 )
 
 
@@ -49,7 +50,7 @@ def test_cli_mapper_lidar_world(tmp_path):
 
 
 def test_cli_reports_unported_commands(capsys):
-    assert cli.main(["spatial_matcher", "--database_path", "x.db"]) == 1
+    assert cli.main(["vocab_tree_matcher", "--database_path", "x.db"]) == 1
     assert "not yet ported" in capsys.readouterr().out
     assert cli.main(["--help"]) == 0
 
@@ -86,11 +87,11 @@ def test_port_matcher_and_classic_mapper_never_import_jax(tmp_path):
     )
     paths = synthetic_torch.write_world(rec, graph, lmap, gt, str(tmp_path), descriptors=desc)
     out = tmp_path / "out"
-    match_argv = ["sequential_matcher", "--database_path", paths["database"]]
+    match_argv = ["sequential_matcher", "--database_path", paths["database"], "--device", "cpu"]
     map_argv = synthetic_torch.classic_mapper_argv(
         paths, str(out), (1, 3), "--Mapper.init_min_tri_angle", "2",
         "--Mapper.init_min_num_inliers", "30", "--Mapper.abs_pose_min_num_inliers", "15",
-        "--Mapper.multiple_models", "0",
+        "--Mapper.multiple_models", "0", "--device", "cpu",
     )
     code = (
         "import sys; sys.modules['jax'] = None\n"

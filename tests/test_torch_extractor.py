@@ -122,7 +122,7 @@ def test_extractor_error_reaches_the_caller(tmp_path):
     (d / "broken.png").write_bytes(b"not a png")
     with pytest.raises(Exception):
         fp_t.run_feature_extractor(str(tmp_path / "x.db"), str(d), EXTRACT, device="cpu")
-    assert fp_t.run_feature_extractor(str(tmp_path / "y.db"), str(tmp_path / "none"), EXTRACT) == 0
+    assert fp_t.run_feature_extractor(str(tmp_path / "y.db"), str(tmp_path / "none"), EXTRACT, device="cpu") == 0
 
 
 def test_mixed_shapes_and_resize(tmp_path):
@@ -232,11 +232,12 @@ def test_cli_extractor_and_importer_never_import_jax(image_dir, tmp_path):
         "--ImageReader.camera_model", "PINHOLE", "--ImageReader.camera_params", "300,300,128,128",
         "--SiftExtraction.max_num_features", "512", "--SiftExtraction.first_octave", "0",
         "--SiftExtraction.num_octaves", "3", "--SiftExtraction.max_image_size", "512",
+        "--device", "cpu",
     ]
     match_argv = ["sequential_matcher", "--database_path", db_e, "--SequentialMatching.overlap", "2",
-                  "--SiftMatching.min_num_inliers", "10"]
+                  "--SiftMatching.min_num_inliers", "10", "--device", "cpu"]
     import_argv = ["feature_importer", "--database_path", db_i, "--image_path", image_dir,
-                   "--import_path", import_dir]
+                   "--import_path", import_dir, "--device", "cpu"]
     code = (
         "import sys; sys.modules['jax'] = None\n"
         "import torch; torch.set_num_threads(1)\n"
@@ -384,7 +385,7 @@ def test_pipeline_map_surfaces_errors_of_each_stage():
 _MAPPER_FLAGS = (
     "--Mapper.init_min_num_inliers", "40", "--Mapper.abs_pose_min_num_inliers", "12",
     "--Mapper.abs_pose_min_inlier_ratio", "0.15", "--Mapper.filter_max_reproj_error", "6.0",
-    "--Mapper.multiple_models", "0",
+    "--Mapper.multiple_models", "0", "--device", "cpu",
 )
 
 
@@ -409,10 +410,11 @@ def _pixels_to_model(tmp_path, n_images, width, height, focal, features, model="
         "--ImageReader.camera_params", ",".join(repr(float(p)) for p in params),
         "--SiftExtraction.max_num_features", str(features), "--SiftExtraction.first_octave", "0",
         "--SiftExtraction.num_octaves", "3", "--SiftExtraction.max_image_size", str(width),
+        "--device", "cpu",
     ]) == 0
     assert cli.main([
         "sequential_matcher", "--database_path", paths["database"],
-        "--SequentialMatching.overlap", "3", "--SiftMatching.min_num_inliers", "15",
+        "--SequentialMatching.overlap", "3", "--SiftMatching.min_num_inliers", "15", "--device", "cpu",
     ]) == 0
     db = Database(paths["database"])
     assert len(db.all_two_view_pair_ids()) >= n_images - 1

@@ -272,9 +272,13 @@ def test_numerics_policy():
 
 
 def test_cuda_request_raises_without_cuda():
-    if torch.cuda.is_available():
-        assert device_t.resolve("cuda").type == "cuda"
-    else:
-        with pytest.raises(RuntimeError, match="CUDA is not available"):
-            device_t.resolve("cuda")
-        assert device_t.resolve().type == "cpu"
+    """None, "auto" and "cuda" all mean CUDA; without it they raise, and
+    only a request for the CPU by name gives the CPU: the port never falls
+    back to the CPU on its own."""
+    assert device_t.resolve("cpu").type == "cpu"
+    for name in (None, "auto", "cuda"):
+        if torch.cuda.is_available():
+            assert device_t.resolve(name).type == "cuda"
+        else:
+            with pytest.raises(RuntimeError, match="CUDA is not available"):
+                device_t.resolve(name)

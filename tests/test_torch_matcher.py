@@ -31,7 +31,7 @@ def _world(tmp_path, seed, n_images, n_points, noise_px=0.3):
 def test_unported_matcher_options_raise(tmp_path):
     """Loop detection points at the roadmap instead of running half a path
     (extraction is ported: on a directory without images it extracts none)."""
-    assert pipeline_t.run_feature_extractor(str(tmp_path / "db.db"), str(tmp_path)) == 0
+    assert pipeline_t.run_feature_extractor(str(tmp_path / "db.db"), str(tmp_path), device="cpu") == 0
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         pipeline_t.run_sequential_matcher(str(tmp_path / "db.db"), MatchingConfigT(), loop_detection=True)
 
@@ -45,7 +45,7 @@ def test_sequential_matcher_matches_jax(tmp_path):
     db_t = paths["database"]
     db_j = str(tmp_path / "jax.db")
     shutil.copy(db_t, db_j)
-    n_t = pipeline_t.run_sequential_matcher(db_t, MatchingConfigT(), overlap=3)
+    n_t = pipeline_t.run_sequential_matcher(db_t, MatchingConfigT(), overlap=3, device="cpu")
     n_j = pipeline_j.run_sequential_matcher(db_j, MatchingConfigJ(), overlap=3)
     assert n_t == n_j > 0
     dt, dj = Database(db_t), Database(db_j)
@@ -74,13 +74,13 @@ def test_classic_mapper_on_matcher_geometries(tmp_path):
     with its bars: >= 5 registered, median reprojection error < 1 px."""
     paths, gt, _ = _world(tmp_path, 11, 6, 500, noise_px=0.2)
     argv = ["sequential_matcher", "--database_path", paths["database"],
-            "--SequentialMatching.overlap", "5"]
+            "--SequentialMatching.overlap", "5", "--device", "cpu"]
     assert cli.main(argv) == 0
     out = tmp_path / "out"
     assert cli.main(synthetic_torch.classic_mapper_argv(
         paths, str(out), (1, 3), "--Mapper.init_min_tri_angle", "2",
         "--Mapper.init_min_num_inliers", "30", "--Mapper.abs_pose_min_num_inliers", "15",
-        "--Mapper.multiple_models", "0",
+        "--Mapper.multiple_models", "0", "--device", "cpu",
     )) == 0
     rec = Reconstruction.read(str(out / "0"))
     assert rec.num_reg_images >= 5, rec.num_reg_images
@@ -104,12 +104,12 @@ def test_exhaustive_and_transitive_matchers(tmp_path):
     paths, _, _ = _world(tmp_path, 3, 4, 300)
     db_seq = str(tmp_path / "seq.db")
     shutil.copy(paths["database"], db_seq)
-    assert cli.main(["exhaustive_matcher", "--database_path", paths["database"]]) == 0
+    assert cli.main(["exhaustive_matcher", "--database_path", paths["database"], "--device", "cpu"]) == 0
     full = _verified(paths["database"])
     assert sorted(full) == [(i, j) for i in range(1, 5) for j in range(i + 1, 5)]
     assert pipeline_t.run_sequential_matcher(db_seq, MatchingConfigT(), overlap=1,
-                                             quadratic_overlap=False) == 3
-    assert cli.main(["transitive_matcher", "--database_path", db_seq]) == 0
+                                             quadratic_overlap=False, device="cpu") == 3
+    assert cli.main(["transitive_matcher", "--database_path", db_seq, "--device", "cpu"]) == 0
     assert sorted(_verified(db_seq)) == sorted(full)
 
 
@@ -131,7 +131,7 @@ def test_matches_importer(tmp_path, match_type):
             blocks.append("\n".join([f"{names[i]} {names[j]}"] + rows))
         listing.write_text("\n\n".join(blocks) + "\n")
     argv = ["matches_importer", "--database_path", paths["database"],
-            "--match_list_path", str(listing), "--match_type", match_type]
+            "--match_list_path", str(listing), "--match_type", match_type, "--device", "cpu"]
     assert cli.main(argv) == 0
     verified = _verified(paths["database"])
     assert sorted(verified) == [(1, 2), (2, 3)]
@@ -146,9 +146,9 @@ def test_guided_matching_takes_the_per_pair_path(tmp_path):
     db_guided = str(tmp_path / "guided.db")
     shutil.copy(paths["database"], db_guided)
     cfg = MatchingConfigT()
-    assert pipeline_t.run_sequential_matcher(paths["database"], cfg, overlap=2) == 5
+    assert pipeline_t.run_sequential_matcher(paths["database"], cfg, overlap=2, device="cpu") == 5
     guided = MatchingConfigT(guided_matching=True)
-    assert pipeline_t.run_sequential_matcher(db_guided, guided, overlap=2) == 5
+    assert pipeline_t.run_sequential_matcher(db_guided, guided, overlap=2, device="cpu") == 5
     plain, with_guide = _verified(paths["database"]), _verified(db_guided)
     assert sorted(plain) == sorted(with_guide)
     assert all(with_guide[p] >= plain[p] for p in plain)
@@ -169,7 +169,7 @@ def test_initial_pair_verification_matches_jax(relaxed):
     verdicts = []
     for make_world, mapper in ((synthetic.make_world, mapper_j), (synthetic_torch.make_world, mapper_t)):
         rec, graph, _, _ = make_world(np.random.default_rng(11), n_images=6, n_points=500, noise_px=0.2)
-        m = mapper.IncrementalMapper(rec, graph)
+        m = mapper.IncrementalMapper(rec, graph, **({"device": "cpu"} if mapper is mapper_t else {}))
         opts = mapper.MapperOptions(if_add_lidar_constraint=False, **kw)
         verdicts.append((m.estimate_initial_two_view_geometry(opts, 1, 3), m._prev_init_pair))
     assert verdicts[0] == verdicts[1] == ((True, (1, 3)) if relaxed else (False, None))
@@ -201,9 +201,9 @@ def test_batched_matcher_takes_the_uint8_path(tmp_path, monkeypatch):
 
     monkeypatch.setattr(matching_ops, "match_descriptors_u8", count_u8)
     monkeypatch.setattr(matching_ops, "match_descriptors", count_float)
-    assert pipeline_t.run_sequential_matcher(paths["database"], MatchingConfigT(), overlap=2) == 5
+    assert pipeline_t.run_sequential_matcher(paths["database"], MatchingConfigT(), overlap=2, device="cpu") == 5
     assert calls == {"u8": 1, "float": 0}  # 5 pairs, one chunk
     assert synthetic_torch.match_precision_recall(paths["database"], point_ids)["precision"] > 0.99
     guided = MatchingConfigT(guided_matching=True)
-    assert pipeline_t.run_sequential_matcher(db_guided, guided, overlap=2) == 5
+    assert pipeline_t.run_sequential_matcher(db_guided, guided, overlap=2, device="cpu") == 5
     assert calls == {"u8": 1, "float": 5}

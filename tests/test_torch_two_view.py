@@ -276,7 +276,7 @@ def test_two_view_configs_match_jax():
     scenes = {"calibrated": (uv1, uv2), "planar": (pu1, pu2), "degenerate": (du1, du2)}
     for name, (a, b) in scenes.items():
         gj = two_view_j.estimate_two_view_geometry(a, b, params, params, 1, 1)
-        gt = two_view_t.estimate_two_view_geometry(a, b, params, params, 1, 1)
+        gt = two_view_t.estimate_two_view_geometry(a, b, params, params, 1, 1, device="cpu")
         assert gt.config == gj.config, name
         if name == "calibrated":
             assert gt.config == two_view_t.CALIBRATED
@@ -284,7 +284,7 @@ def test_two_view_configs_match_jax():
             assert float(se3_j.angle_between(J(gt.qvec), J(q2))) < 0.02
             assert float(np.dot(gt.tvec, gj.tvec)) > 0.99
             assert abs(gt.tri_angle - gj.tri_angle) < 1e-3
-    assert two_view_t.estimate_two_view_geometry(pu1, pu2, params, params, 1, 1).config == (
+    assert two_view_t.estimate_two_view_geometry(pu1, pu2, params, params, 1, 1, device="cpu").config == (
         two_view_t.PLANAR_OR_PANORAMIC
     )
 
@@ -297,13 +297,13 @@ def test_two_view_batch_matches_scalar():
     for k in range(4):
         _, params, uv1, uv2 = _stereo_scene(rng, noise=0.3)
         scalars.append(two_view_t.estimate_two_view_geometry(
-            uv1, uv2, params, params, 1, 1, seed=k, size1=(640, 480), size2=(640, 480),
+            uv1, uv2, params, params, 1, 1, seed=k, size1=(640, 480), size2=(640, 480), device="cpu",
         ))
         items.append(dict(
             uv1=uv1, uv2=uv2, params1=params, params2=params, model_id1=1, model_id2=1,
             seed=k, size1=(640, 480), size2=(640, 480),
         ))
-    for g_s, g_b in zip(scalars, two_view_t.estimate_two_view_geometry_batch(items)):
+    for g_s, g_b in zip(scalars, two_view_t.estimate_two_view_geometry_batch(items, device="cpu")):
         assert g_b.config == g_s.config == two_view_t.CALIBRATED
         np.testing.assert_array_equal(g_b.inlier_matches, g_s.inlier_matches)
         assert float(se3_j.angle_between(J(g_b.qvec), J(g_s.qvec))) < 0.03
@@ -343,7 +343,7 @@ def test_watermark_and_multiple_models_match_jax():
     uv1, uv2 = np.concatenate([a1, b1]), np.concatenate([a2, b2])
     opts_t = two_view_t.TwoViewOptions(multiple_models=True)
     opts_j = two_view_j.TwoViewOptions(multiple_models=True)
-    gt = two_view_t.estimate_two_view_geometry(uv1, uv2, params, params, 1, 1, opts_t)
+    gt = two_view_t.estimate_two_view_geometry(uv1, uv2, params, params, 1, 1, opts_t, device="cpu")
     gj = two_view_j.estimate_two_view_geometry(uv1, uv2, params, params, 1, 1, opts_j)
     assert gt.config == gj.config == two_view_t.MULTIPLE
     assert abs(len(gt.inlier_matches) - len(gj.inlier_matches)) <= 2
