@@ -2,7 +2,8 @@
 """Smoke run of the PyTorch port (colmap_pcd_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--n-images 100] [--descriptor-images 50]
-                          [--overlap-images 30] [--classic-images 20] [--seed 0]
+                          [--overlap-images 30] [--classic-images 20]
+                          [--rig-snapshots 100] [--rig-points 20000] [--seed 0]
 
 Phases, each printing its numbers on its own line:
   1. environment: the card's name and power limit (nvidia-smi), torch/CUDA;
@@ -74,7 +75,25 @@ Phases, each printing its numbers on its own line:
      the pose prior (K2); then
      `ops.ba.solve` on tests/test_ba_pcg.py's 2000-camera corridor, which
      "auto" sends to the PCG tier;
- 11. checks: match_top2_u8 launched by every matcher run (spatial_matcher
+ 11. retrieval and camera rigs, each command through cli.main with the
+     launch counts zeroed just before it: vocab_tree_builder (k = 64 words
+     x 128) and vocab_tree_retriever --num_images 10 on the pixel world's
+     database (recall@10 of the views at most 2 steps away);
+     vocab_tree_matcher (10 neighbours, vote-and-verify re-ranking) and
+     sequential_matcher at overlap 5 with loop detection and re-ranking,
+     each on a copy cleared of matches (uint8 K1); the index built on the
+     card against the one built on the CPU (VLADs, top-10 lists,
+     vote-and-verify scores of every 10th image's top 20, twice on the
+     card); vote_and_verify_batch of one query against 20 candidates (on
+     the card twice and on the CPU) and build_index at the reference
+     feature cap of 8192 (CUDA events, peak memory); the rig world (a 4-camera rig, 0.3 m lever arms, over 100
+     snapshots of the pixel world's trajectory, 20 000 wall points, 0.5 px
+     noise; rig poses perturbed by 2 cm / 0.5 deg, relative poses by 1 cm /
+     0.3 deg) through rig_bundle_adjuster with refined relative poses; and
+     ransac_generalized_relative_pose (GR6P) at 2 000 rays with 20%
+     outliers and H = 256;
+ 12. checks: match_top2_u8 launched by every matcher run (spatial_matcher,
+     vocab_tree_matcher and the loop-detecting sequential matcher
      included), match_top2 by the guided matcher and K2 by every lidar
      mapper run, bundle_adjuster and hierarchical_mapper; the pixel world
      holds 100 images of 300-2 048 keypoints and its model >= 95%
@@ -88,7 +107,15 @@ Phases, each printing its numbers on its own line:
      within 1 grey level of their input, spatial pairs verified, the
      hierarchical model holding at least its seeded leaf (50 images) at
      ATE < 0.15 m, and the PCG corridor at < 1% of its initial cost with
-     every camera within 0.1 m.
+     every camera within 0.1 m; vocab_tree_matcher verifies every
+     consecutive pair, loop detection adds pairs, recall@10 >= 0.9, the
+     card's index agrees with the CPU's (VLADs within 1e-5, top-10 lists
+     equal but for near-ties within 1e-6, vote-and-verify scores equal and
+     equal twice, at the pixel world's shortlists and at the reference
+     cap), rig BA reaches a mean reprojection error < 0.75 px with every
+     relative pose within 2 mm and 0.02 deg of the truth and every image
+     centre within 5 mm after a sim(3) alignment, and GR6P's rotation error
+     is < 1e-3 rad.
 
 `--kernels-only` stops after phase 4 (on a corridor map built like the
 pixel world's) and prints no result line: a short first look at a changed
@@ -133,6 +160,18 @@ SIM_ATOL = 1e-6
 # cosine >= SIFT_COS
 SIFT_PARTNER_PX, SIFT_PARTNER_SCALE, SIFT_PARTNER_SHARE = 0.01, 1e-3, 0.98
 SIFT_ORI_ATOL, SIFT_COS, SIFT_GOOD_SHARE = 1e-4, 0.995, 0.99
+
+# retrieval on the card against the CPU: VLADs within VLAD_ATOL (f32 sums
+# in another order); top-10 lists equal except between similarities within
+# 1e-6; vote-and-verify scores equal. Recall@10 of the views at most two
+# steps away on the pixel world
+VLAD_ATOL = 1e-5
+RETRIEVAL_RECALL = 0.9
+# the rig world's bars, set from a CPU rehearsal of the phase at full size
+# (mean reprojection 0.609 px, relative poses within 0.0056 deg and 0.55 mm,
+# centres within 0.81 mm after a sim(3) alignment; GR6P 7.2e-5 rad)
+RIG_REPROJ_PX, RIG_REL_DEG, RIG_REL_M, RIG_CENTRE_M = 0.75, 0.02, 0.002, 0.005
+GR6P_ROT_RAD = 1e-3
 
 # the pixel world (the JAX package's bench at its light scale) and the
 # accuracy that package recorded on it (BENCH_r05.json)
@@ -1234,6 +1273,434 @@ def _require_sfm_tools(st: dict, px: dict, n_images: int):
         raise AssertionError(f"PCG corridor: {pcg}")
 
 
+# ---------------------------------------------------------------------------
+# phase 11: retrieval and camera rigs
+
+
+def _db_pairs(database: str) -> tuple[int, set]:
+    """(pairs tried, {verified pairs}) of a matcher-written database."""
+    from colmap_pcd_tpu_torch.models.database import Database, pair_id_to_image_pair
+
+    db = Database(database)
+    tried = [pair_id_to_image_pair(r[0]) for r in db.conn.execute("SELECT pair_id FROM matches")]
+    verified = {(i, j) for i, j in db.all_two_view_pair_ids()
+                if len(db.read_two_view_geometry(i, j)["inlier_matches"]) > 0}
+    db.close()
+    return len(tried), verified
+
+
+def _retrieval_agreement(database: str) -> dict:
+    """The index on the card against the index on the CPU from one database
+    (VLADs, top-10 lists, vote-and-verify scores of every 10th image's top
+    20, twice on the card), and the index's build time on the card."""
+    import torch
+
+    from colmap_pcd_tpu_torch import device as device_mod
+    from colmap_pcd_tpu_torch.models.database import Database
+    from colmap_pcd_tpu_torch.ops import retrieval, vote_verify
+
+    db = Database(database)
+    ids = sorted(db.images())
+    descs = {i: db.read_descriptors(i).astype(np.float32) for i in ids}
+    geoms = {i: db.read_keypoints(i)[:, :4].astype(np.float32) for i in ids}
+    db.close()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gpu = retrieval.build_index(descs, geoms_by_image=geoms, device=device_mod.resolve("cuda"))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    cpu = retrieval.build_index(descs, geoms_by_image=geoms, device="cpu")
+    res = {"build_index_s": build_s, "images": len(ids),
+           "vlad_err": float((gpu.vlads.cpu() - cpu.vlads).abs().max()),
+           "centroid_err": float((gpu.centroids.cpu() - cpu.centroids).abs().max()),
+           "top10_differ": 0, "top10_near_ties": 0, "vv_checked": 0, "vv_differ": 0, "vv_rerun_differ": 0}
+    opts = vote_verify.VoteVerifyOptions()
+    for qi, i in enumerate(ids):
+        s_g, s_c = retrieval.similarities(gpu, qi), retrieval.similarities(cpu, qi)
+        top_g = [int(o) for o in np.argsort(-s_g) if o != qi][:10]
+        top_c = [int(o) for o in np.argsort(-s_c) if o != qi][:10]
+        if top_g != top_c:
+            res["top10_differ"] += 1
+            ties = all(abs(s_c[a] - s_c[b]) <= 1e-6 for a, b in zip(top_g, top_c) if a != b)
+            res["top10_near_ties"] += int(ties)
+        if qi % 10 == 0:
+            short = [int(o) for o in np.argsort(-s_c) if o != qi][:20]
+            scores = []
+            for index in (gpu, gpu, cpu):
+                rows = torch.as_tensor(short, device=index.vlads.device)
+                scores.append(vote_verify.vote_and_verify_batch(
+                    index.geoms[qi], index.words[qi], index.valids[qi], index.geoms[rows], index.words[rows],
+                    index.valids[rows], opts).cpu().numpy())
+            res["vv_checked"] += len(short)
+            res["vv_rerun_differ"] += int(np.sum(scores[0] != scores[1]))
+            res["vv_differ"] += int(np.sum(scores[0] != scores[2]))
+            res.setdefault("vv_scores_sample", scores[0].tolist())
+    return res
+
+
+def run_retrieval(world: dict, tmp: str) -> dict:
+    """Phase 11a: the retrieval commands on the pixel world's database."""
+    import contextlib
+    import io
+
+    from colmap_pcd_tpu_torch.models.database import Database
+
+    kernels = _kernel_counters()
+    database = world["paths"]["database"]
+    res = {"commands": {}}
+
+    def run(label, argv, quiet=False):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf) if quiet else contextlib.nullcontext():
+            rc, seconds, launches = _run_cli(argv, kernels)
+        if rc != 0:
+            raise RuntimeError(f"{label} exited with {rc}")
+        res["commands"][label] = {"seconds": seconds, "launches": launches}
+        return buf.getvalue()
+
+    vocab = os.path.join(tmp, "vocab.npz")
+    run("vocab_tree_builder", ["vocab_tree_builder", "--database_path", database, "--vocab_tree_path", vocab])
+    res["vocab_words"] = np.load(vocab)["centroids"].shape
+    lines = run("vocab_tree_retriever", ["vocab_tree_retriever", "--database_path", database,
+                                         "--num_images", "10"], quiet=True)
+    db = Database(database)
+    by_name = {v["name"]: k for k, v in db.images().items()}
+    db.close()
+    hits = total = 0
+    for line in lines.splitlines():
+        name, _, ranked = line.partition(": ")
+        if name not in by_name:
+            continue
+        i = by_name[name]
+        got = {by_name[n] for n in ranked.split(", ")}
+        truth = {j for j in by_name.values() if 0 < abs(j - i) <= 2}
+        hits += len(truth & got)
+        total += len(truth)
+    res["recall_at_10"] = hits / max(total, 1)
+    res["retriever_lines"] = sum(1 for ln in lines.splitlines() if ": " in ln)
+
+    from colmap_pcd_tpu_torch.models.feature_pipeline import sequential_pair_list
+
+    ids = sorted(by_name.values())
+    matcher = ["--SiftMatching.min_num_inliers", "15"]
+    for label, argv in (
+        ("vocab_tree_matcher", ["vocab_tree_matcher", "--VocabTreeMatching.num_images", "10",
+                                "--VocabTreeMatching.spatial_rerank", "1", *matcher]),
+        ("sequential_matcher loop detection", ["sequential_matcher", "--SequentialMatching.overlap", "5",
+                                               "--SequentialMatching.loop_detection", "1",
+                                               "--SequentialMatching.spatial_rerank", "1", *matcher]),
+    ):
+        copy = os.path.join(tmp, label.split()[0] + ".db")
+        shutil.copy(database, copy)
+        run(f"database_cleaner ({label})", ["database_cleaner", "--database_path", copy, "--type", "matches"])
+        run(label, [argv[0], "--database_path", copy, *argv[1:]])
+        tried, verified = _db_pairs(copy)
+        res["commands"][label].update(pairs_tried=tried, pairs_verified=len(verified),
+                                      consecutive_verified=sum((i, i + 1) in verified for i in ids[:-1]))
+    res["sequential_pairs"] = len(sequential_pair_list(ids, 5, True))
+    res["agreement"] = _retrieval_agreement(database)
+    return res
+
+
+def _vv_reference_scale(rng, C: int = 20, cap: int = 8192) -> dict:
+    """vote_and_verify_batch of one query against C candidates and
+    build_index of the C + 1 images at the reference feature cap (8192, the
+    JAX package's reference-scale bench), on synthetic geometry: candidate c
+    shares (1 - c/C)/2 of the query's features under a similarity, the rest
+    random. The scores on the card against the CPU's and a second run's;
+    times by CUDA events (mean of 3 after a warm-up), peak memory."""
+    import torch
+
+    from colmap_pcd_tpu_torch import device as device_mod
+    from colmap_pcd_tpu_torch.ops import retrieval, vote_verify
+
+    W, H = REF_W, REF_H
+
+    def feats(n):
+        return np.concatenate([rng.uniform([0, 0], [W, H], (n, 2)), rng.uniform(1, 8, (n, 1)),
+                               rng.uniform(-np.pi, np.pi, (n, 1))], -1), rng.integers(0, 64, n)
+
+    gq, wq = feats(cap)
+    g2, w2 = np.zeros((C, cap, 4)), np.zeros((C, cap), np.int64)
+    for c in range(C):
+        g2[c], w2[c] = feats(cap)
+        keep = rng.random(cap) < 0.5 * (1 - c / C)
+        s, a, t = rng.uniform(0.8, 1.25), rng.uniform(-0.3, 0.3), rng.uniform(-100, 100, 2)
+        R = np.asarray([[np.cos(a), -np.sin(a)], [np.sin(a), np.cos(a)]])
+        g2[c, keep, :2] = s * gq[keep, :2] @ R.T + t + rng.normal(0, 1.0, (keep.sum(), 2))
+        g2[c, keep, 2] = s * gq[keep, 2]
+        g2[c, keep, 3] = gq[keep, 3] + a
+        w2[c, keep] = wq[keep]
+    dev = device_mod.resolve("cuda")
+    args = [torch.as_tensor(x, dtype=dt, device=dev) for x, dt in (
+        (gq, torch.float32), (wq, torch.int32), (np.ones(cap), torch.float32),
+        (g2, torch.float32), (w2, torch.int32), (np.ones((C, cap)), torch.float32))]
+    opts = vote_verify.VoteVerifyOptions()
+    scores = vote_verify.vote_and_verify_batch(*args, opts).cpu().numpy()
+    rerun = vote_verify.vote_and_verify_batch(*args, opts).cpu().numpy()
+    on_cpu = vote_verify.vote_and_verify_batch(*(a.cpu() for a in args), opts).numpy()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    vv_ms = _cuda_ms(lambda: vote_verify.vote_and_verify_batch(*args, opts), 3)
+    vv_peak = torch.cuda.max_memory_allocated() - base
+
+    descs = {i: (rng.normal(size=(cap, 128)) ** 2 * 60).clip(0, 255).astype(np.uint8) for i in range(1, C + 2)}
+    geoms = {i: feats(cap)[0].astype(np.float32) for i in descs}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    build_ms = _cuda_ms(lambda: retrieval.build_index(descs, geoms_by_image=geoms, device=dev), 1)
+    build_peak = torch.cuda.max_memory_allocated() - base
+    return {"C": C, "cap": cap, "scores": scores.tolist(), "rerun_differ": int(np.sum(rerun != scores)),
+            "cpu_differ": int(np.sum(on_cpu != scores)), "vv_ms": vv_ms, "vv_peak_bytes": vv_peak,
+            "build_ms": build_ms, "build_peak_bytes": build_peak, "images": C + 1}
+
+
+# the rig world: four cameras (front, right, left, rear; yaw 0, 90, -90, 180
+# degrees about the camera's down axis) with 0.3 m lever arms, on the pixel
+# world's trajectory
+RIG_CAMERAS = (("front", 0.0, (0.0, 0.0, 0.0)), ("right", np.pi / 2, (0.3, 0.0, 0.0)),
+               ("left", -np.pi / 2, (-0.3, 0.0, 0.0)), ("rear", np.pi, (0.0, 0.0, -0.3)))
+
+
+def _perturbed(rng, q, t, metres: float, degrees: float):
+    """(q, t) moved by `metres` and turned by `degrees` in random directions."""
+    from colmap_pcd_tpu_torch.ops import np_geom
+
+    axis, step = rng.normal(size=3), rng.normal(size=3)
+    dq = np_geom.so3_exp_quat(axis / np.linalg.norm(axis) * np.deg2rad(degrees))
+    return np_geom.quat_mul(dq, q), t + step / np.linalg.norm(step) * metres
+
+
+def _rig_world(rng, n_snap: int, n_points: int):
+    """The rig world as a model whose image poses compose perturbed rig and
+    relative poses (rig 2 cm / 0.5 deg, non-reference cameras 1 cm / 0.3 deg),
+    the rig config holding the perturbed relative poses, and the truth."""
+    from colmap_pcd_tpu_torch.models.reconstruction import Camera, Image, Reconstruction
+    from colmap_pcd_tpu_torch.ops import np_geom
+    from synthetic_torch import make_trajectory
+
+    rigs = make_trajectory(n_snap, PIXEL_STEP)  # world -> rig (the front camera)
+    rel = []
+    for _, yaw, c in RIG_CAMERAS:
+        R = np.asarray([[np.cos(yaw), 0, -np.sin(yaw)], [0, 1, 0], [np.sin(yaw), 0, np.cos(yaw)]])  # rig -> cam
+        rel.append((np_geom.rotmat_to_quat(R), -R @ np.asarray(c)))
+    rel_p = [rel[0]] + [_perturbed(rng, q, t, 0.01, 0.3) for q, t in rel[1:]]
+    rigs_p = [_perturbed(rng, q, t, 0.02, 0.5) for q, t in rigs]
+    half = n_points // 2
+    z = rng.uniform(-25.0, n_snap * PIXEL_STEP + 25.0, n_points)
+    pts = np.stack([np.where(np.arange(n_points) < half, -4.0, 4.0), rng.uniform(-2.0, 2.0, n_points), z], -1)
+
+    rec = Reconstruction()
+    K = np.asarray([PIXEL_F, PIXEL_F, PIXEL_W / 2, PIXEL_H / 2])
+    for c in range(len(RIG_CAMERAS)):
+        rec.add_camera(Camera(c + 1, 1, PIXEL_W, PIXEL_H, K.copy()))
+    tracks = [[] for _ in range(n_points)]
+    truth = {}
+    for s in range(n_snap):
+        for c, (name, _, _) in enumerate(RIG_CAMERAS):
+            iid = s * len(RIG_CAMERAS) + c + 1
+            q, t = np_geom.se3_compose(*rel[c], *rigs[s])
+            truth[iid] = (q, t)
+            Xc = np_geom.se3_apply(q, t, pts)
+            zc = Xc[:, 2]
+            with np.errstate(divide="ignore", invalid="ignore"):
+                uv = PIXEL_F * Xc[:, :2] / zc[:, None] + K[2:]
+            seen = np.nonzero((zc > 0.5) & (zc < 30.0) & (uv[:, 0] >= 0) & (uv[:, 0] < PIXEL_W)
+                              & (uv[:, 1] >= 0) & (uv[:, 1] < PIXEL_H))[0]
+            qp, tp = np_geom.se3_compose(*rel_p[c], *rigs_p[s])
+            rec.add_image(Image(iid, f"{name}/{s:04d}.png", c + 1, qvec=qp, tvec=tp,
+                                xys=uv[seen] + rng.normal(0, 0.5, (seen.size, 2))))
+            rec.register_image(iid)
+            for k, p in enumerate(seen):
+                tracks[p].append((iid, k))
+    for p in range(n_points):
+        if len(tracks[p]) >= 2:
+            rec.add_point3D(pts[p], tracks[p])
+    config = [{"ref_camera_id": 1, "cameras": [
+        {"camera_id": c + 1, "image_prefix": f"{name}/", "rel_qvec": rel_p[c][0].tolist(),
+         "rel_tvec": rel_p[c][1].tolist()} for c, (name, _, _) in enumerate(RIG_CAMERAS)]}]
+    return rec, config, truth, rel
+
+
+def run_rig_world(args, tmp: str) -> dict:
+    """Phase 11c: `rig_bundle_adjuster --RigBundleAdjustment.refine_relative_poses
+    1` on the rig world, the solve's own numbers read by wrapping
+    `ops.rig_ba.solve`."""
+    import torch
+
+    from colmap_pcd_tpu_torch.models.camera_rig import read_rig_config
+    from colmap_pcd_tpu_torch.models.reconstruction import Reconstruction
+    from colmap_pcd_tpu_torch.ops import np_geom, rig_ba, solvers
+
+    t0 = time.perf_counter()
+    rec, config, truth, rel = _rig_world(np.random.default_rng(args.seed + 7), args.rig_snapshots, args.rig_points)
+    model, out = os.path.join(tmp, "rig_in"), os.path.join(tmp, "rig_out")
+    os.makedirs(model)
+    os.makedirs(out)
+    rec.write(model)
+    cfg_path = os.path.join(tmp, "rig.json")
+    with open(cfg_path, "w") as f:
+        json.dump(config, f)
+    build_s = time.perf_counter() - t0
+    n_obs = sum(len(p.track) for p in rec.points3D.values())
+
+    # the command's stages, each timed to a device sync by a wrapper put in
+    # place for this run: the model's read and write, the adjuster (its host
+    # assembly, the solve, the point errors' update)
+    from colmap_pcd_tpu_torch.models.rig_adjuster import RigBundleAdjuster
+
+    stages, results = {}, []
+    wrapped = [(rig_ba, "solve"), (RigBundleAdjuster, "solve"), (Reconstruction, "read"),
+               (Reconstruction, "write"), (Reconstruction, "update_point_errors")]
+    originals = [vars(owner)[name] for owner, name in wrapped]
+
+    def timed(label, fn):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            stages[label] = stages.get(label, 0.0) + time.perf_counter() - t1
+            if label == "rig_ba.solve":
+                results.append((out, a[0]))
+            return out
+        return run
+
+    for (owner, name), raw in zip(wrapped, originals):
+        label = f"{'rig_ba' if owner is rig_ba else owner.__name__}.{name}"
+        fn = timed(label, getattr(owner, name))
+        setattr(owner, name, staticmethod(fn) if isinstance(raw, classmethod) else fn)
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        rc, seconds, launches = _run_cli(["rig_bundle_adjuster", "--input_path", model, "--output_path", out,
+                                          "--rig_config_path", cfg_path,
+                                          "--RigBundleAdjustment.refine_relative_poses", "1"], _kernel_counters())
+    finally:
+        for (owner, name), raw in zip(wrapped, originals):
+            setattr(owner, name, raw)
+    if rc != 0:
+        raise RuntimeError(f"rig_bundle_adjuster exited with {rc}")
+    (r, problem), = results
+    shapes = {k: tuple(v.shape) for k, v in problem._asdict().items()
+              if k in ("rig_q", "rel_q", "points", "obs_uv", "pt_obs")}
+    res = Reconstruction.read(out)  # with the point errors the adjuster wrote
+    # relative poses: every snapshot composes them exactly after the solve
+    (rig,) = read_rig_config(cfg_path, res)
+    rig.compute_relative_poses(res)
+    rel_err = [(float(np.rad2deg(np_geom.angle_between(rig.rel_poses[c + 1][0], rel[c][0]))),
+                float(np.linalg.norm(rig.rel_poses[c + 1][1] - rel[c][1]))) for c in range(len(rel))]
+    ids = sorted(res.images)
+    est = np.stack([res.images[i].projection_center() for i in ids])
+    ref = np.stack([np_geom.projection_center(*truth[i]) for i in ids])
+    q, t, s = solvers.umeyama(torch.as_tensor(est, dtype=torch.float64), torch.as_tensor(ref, dtype=torch.float64),
+                              with_scale=True)
+    aligned = float(s) * est @ np_geom.quat_to_rotmat(q.numpy()).T + t.numpy()
+    centre_err = np.linalg.norm(aligned - ref, axis=-1)
+    return {"snapshots": args.rig_snapshots, "images": len(ids), "points": len(res.points3D), "observations": n_obs,
+            "build_s": build_s, "seconds": seconds, "stages": stages, "launches": launches,
+            "iterations": r.iterations,
+            "host_syncs": r.host_syncs, "initial_cost": float(r.initial_cost), "final_cost": float(r.final_cost),
+            "shapes": shapes, "mean_reproj_px": res.mean_reprojection_error(),
+            "rel_err_deg_m": rel_err, "centre_err_max_m": float(centre_err.max()),
+            "centre_err_rms_m": float(np.sqrt(np.mean(centre_err**2))),
+            "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+
+
+def _ray_scene(rng, n, qx=0.15, tx=0.4, noise=5e-5, n_outliers=0):
+    """tests/test_generalized_pose.py::_make_rig_scene (that file imports
+    JAX): a 3-camera rig seen from two poses, ray correspondences in each
+    rig frame, x2 = R x1 + t."""
+    from colmap_pcd_tpu_torch.ops import np_geom
+
+    offsets = np.asarray([[0.0, 0, 0], [0.25, 0.05, 0], [-0.2, 0.1, 0.05]])
+    q_gt = np.asarray([np.cos(qx / 2), np.sin(qx / 2), 0.0, 0.0])
+    R_gt, t_gt = np_geom.quat_to_rotmat(q_gt), np.asarray([tx, 0.1, -0.2])
+    X = rng.uniform(-8, 8, size=(n, 3)) + np.asarray([0, 0, 12.0])
+    c1, c2 = offsets[np.arange(n) % 3], offsets[(np.arange(n) + 1) % 3]
+    f1, f2 = X - c1, X @ R_gt.T + t_gt - c2
+    f1 /= np.linalg.norm(f1, axis=-1, keepdims=True)
+    f2 /= np.linalg.norm(f2, axis=-1, keepdims=True)
+    f1 += rng.normal(scale=noise, size=f1.shape)
+    f2 += rng.normal(scale=noise, size=f2.shape)
+    f1 /= np.linalg.norm(f1, axis=-1, keepdims=True)
+    f2 /= np.linalg.norm(f2, axis=-1, keepdims=True)
+    for _ in range(n_outliers):
+        j = rng.integers(0, n)
+        f2[j] = rng.normal(size=3)
+        f2[j] /= np.linalg.norm(f2[j])
+    return [x.astype(np.float32) for x in (f1, c1, f2, c2)], q_gt, t_gt
+
+
+def _gr6p_bank(seed: int, n: int = 2000, hypotheses: int = 256) -> dict:
+    """Phase 11d: ransac_generalized_relative_pose on the card at n rays with
+    20% outliers and H hypotheses (test_gr6p_ransac_with_outliers's options
+    otherwise)."""
+    import torch
+
+    from colmap_pcd_tpu_torch import device as device_mod
+    from colmap_pcd_tpu_torch.ops import np_geom, ransac
+
+    rng = np.random.default_rng(seed)
+    rays, q_gt, t_gt = _ray_scene(rng, n, n_outliers=n // 5)
+    dev = device_mod.resolve("cuda")
+    f1, c1, f2, c2 = (torch.as_tensor(x, device=dev) for x in rays)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    opts = ransac.RansacOptions(max_error=2e-3, num_hypotheses=hypotheses)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = ransac.ransac_generalized_relative_pose(f1, c1, f2, c2, torch.ones(n, device=dev), gen, opts)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    q = res.q.cpu().numpy().astype(np.float64)
+    return {"rays": n, "hypotheses": hypotheses, "seconds": seconds,
+            "rot_err_rad": float(np_geom.angle_between(q, q_gt)),
+            "t_err_m": float(np.linalg.norm(res.t.cpu().numpy() - t_gt)),
+            "inlier_share": int(res.num_inliers) / n}
+
+
+def run_retrieval_and_rigs(args, world: dict, tmp: str) -> dict:
+    """Phase 11: retrieval on the pixel world's database, vote-and-verify
+    and build_index at the reference feature cap, rig BA on the rig world,
+    and the GR6P bank."""
+    out = {"retrieval": run_retrieval(world, tmp)}
+    out["reference_scale"] = _vv_reference_scale(np.random.default_rng(args.seed + 8))
+    out["rig"] = run_rig_world(args, tmp)
+    out["gr6p"] = _gr6p_bank(args.seed + 9)
+    return out
+
+
+def _require_retrieval_and_rigs(ph: dict, n_images: int):
+    """Phase 11's bars (PERF.md section 2)."""
+    rt = ph["retrieval"]
+    vt = rt["commands"]["vocab_tree_matcher"]
+    if vt["consecutive_verified"] != n_images - 1:
+        raise AssertionError(f"vocab_tree_matcher verified {vt['consecutive_verified']} of the "
+                             f"{n_images - 1} consecutive pairs")
+    loop = rt["commands"]["sequential_matcher loop detection"]
+    if loop["pairs_tried"] <= rt["sequential_pairs"]:
+        raise AssertionError(f"loop detection added no pair: {loop['pairs_tried']} tried, "
+                             f"{rt['sequential_pairs']} sequential")
+    if not rt["recall_at_10"] >= RETRIEVAL_RECALL:
+        raise AssertionError(f"retrieval recall@10 {rt['recall_at_10']} < {RETRIEVAL_RECALL}")
+    ag = rt["agreement"]
+    if not ag["vlad_err"] <= VLAD_ATOL or ag["top10_differ"] != ag["top10_near_ties"] \
+            or ag["vv_differ"] or ag["vv_rerun_differ"]:
+        raise AssertionError(f"retrieval on the card against the CPU: {ag}")
+    rs = ph["reference_scale"]
+    if rs["cpu_differ"] or rs["rerun_differ"]:
+        raise AssertionError(f"vote-and-verify at the reference cap: {rs['cpu_differ']} scores differ from the "
+                             f"CPU's, {rs['rerun_differ']} from a second run on the card")
+    rig = ph["rig"]
+    if not rig["mean_reproj_px"] < RIG_REPROJ_PX or not rig["centre_err_max_m"] < RIG_CENTRE_M \
+            or any(not (deg < RIG_REL_DEG and m < RIG_REL_M) for deg, m in rig["rel_err_deg_m"]):
+        raise AssertionError(f"rig world: reprojection {rig['mean_reproj_px']} px, relative poses "
+                             f"{rig['rel_err_deg_m']} (deg, m), centres {rig['centre_err_max_m']} m")
+    if not ph["gr6p"]["rot_err_rad"] < GR6P_ROT_RAD:
+        raise AssertionError(f"GR6P bank: {ph['gr6p']}")
+
+
 def _require_model(label: str, res: dict, n_images: int):
     """The lidar paths' bars (PERF.md section 2)."""
     if res["registered"] < 0.95 * n_images:
@@ -1252,6 +1719,8 @@ def main(argv=None) -> int:
     ap.add_argument("--descriptor-images", type=int, default=50)
     ap.add_argument("--overlap-images", type=int, default=30)
     ap.add_argument("--classic-images", type=int, default=20)
+    ap.add_argument("--rig-snapshots", type=int, default=100, help="depth of the rig world")
+    ap.add_argument("--rig-points", type=int, default=20000)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after the kernel checks of phases 3 and 4; no result line")
@@ -1414,7 +1883,53 @@ def main(argv=None) -> int:
              f"cost {pcg['initial_cost']:.6g} -> {pcg['final_cost']:.6g}, max |t - truth| "
              f"{pcg['max_t_err_m']:.4f} m, peak device memory {pcg['peak_mem_bytes'] / 2**20:.1f} MiB")
 
-    # 11. checks
+        # 11. retrieval and camera rigs
+        os.makedirs(os.path.join(tmp, "retrieval"))
+        ph = run_retrieval_and_rigs(args, world, os.path.join(tmp, "retrieval"))
+        rt = ph["retrieval"]
+        rc_ = rt["commands"]
+        _log(f"[retrieval] vocab_tree_builder: {rc_['vocab_tree_builder']['seconds']:.3f} s, "
+             f"{rt['vocab_words'][0]} words x {rt['vocab_words'][1]}; vocab_tree_retriever --num_images 10: "
+             f"{rc_['vocab_tree_retriever']['seconds']:.3f} s, {rt['retriever_lines']} rankings, recall@10 of "
+             f"the views at most 2 steps away {rt['recall_at_10']:.4f}")
+        for label in ("vocab_tree_matcher", "sequential_matcher loop detection"):
+            c = rc_[label]
+            _log(f"[retrieval] {label}: {c['seconds']:.3f} s (cli.main), {c['pairs_tried']} pairs tried, "
+                 f"{c['pairs_verified']} verified, {c['consecutive_verified']} of {args.n_images - 1} "
+                 f"consecutive pairs verified, K1 launches {c['launches']['match_top2_u8']} (uint8)")
+        _log(f"[retrieval] the sequential pairs alone: {rt['sequential_pairs']}; loop pairs tried "
+             f"{rc_['sequential_matcher loop detection']['pairs_tried'] - rt['sequential_pairs']}")
+        ag = rt["agreement"]
+        _log(f"[retrieval] card against CPU, {ag['images']} images: VLADs within {ag['vlad_err']:.3g}, "
+             f"centroids within {ag['centroid_err']:.3g}; top-10 lists differing {ag['top10_differ']} (of them "
+             f"at near-ties {ag['top10_near_ties']}); vote-and-verify scores differing {ag['vv_differ']} of "
+             f"{ag['vv_checked']} (card twice: {ag['vv_rerun_differ']}); build_index on the card "
+             f"{ag['build_index_s']:.3f} s")
+        rs = ph["reference_scale"]
+        _log(f"[retrieval] reference cap {rs['cap']}: vote_and_verify_batch of one query against C={rs['C']} "
+             f"{rs['vv_ms']:.3f} ms (CUDA events, mean of 3), peak {rs['vv_peak_bytes'] / 2**20:.1f} MiB above "
+             f"the inputs, scores {rs['scores']} ({rs['cpu_differ']} differ from the CPU's, {rs['rerun_differ']} from "
+             f"a second run); build_index of {rs['images']} images "
+             f"{rs['build_ms']:.3f} ms, peak {rs['build_peak_bytes'] / 2**20:.1f} MiB")
+        rg = ph["rig"]
+        _log(f"[rig] {rg['snapshots']} snapshots x 4 cameras = {rg['images']} images, {rg['points']} points, "
+             f"{rg['observations']} observations (built and written in {rg['build_s']:.3f} s); problem "
+             f"{rg['shapes']}")
+        _log(f"[rig] rig_bundle_adjuster --RigBundleAdjustment.refine_relative_poses 1: {rg['seconds']:.3f} s "
+             f"(cli.main), {rg['iterations']} LM iterations, {rg['host_syncs']} host syncs, cost "
+             f"{rg['initial_cost']:.6g} -> {rg['final_cost']:.6g}, mean reprojection error "
+             f"{rg['mean_reproj_px']:.4f} px, relative poses against the truth (deg, m) "
+             f"{[(round(d, 5), round(m, 6)) for d, m in rg['rel_err_deg_m']]}, image centres after sim(3) "
+             f"max {rg['centre_err_max_m'] * 1e3:.3f} mm rms {rg['centre_err_rms_m'] * 1e3:.3f} mm, peak "
+             f"{rg['peak_mem_bytes'] / 2**20:.1f} MiB")
+        _log("[rig] stages of the command (s, each ended by a device sync): "
+             + ", ".join(f"{k} {v:.3f}" for k, v in rg["stages"].items()))
+        g6 = ph["gr6p"]
+        _log(f"[gr6p] ransac_generalized_relative_pose, {g6['rays']} rays, 20% outliers, H={g6['hypotheses']}: "
+             f"{g6['seconds']:.3f} s, rotation error {g6['rot_err_rad']:.3g} rad, translation error "
+             f"{g6['t_err_m']:.3g} m, inlier share {g6['inlier_share']:.4f}")
+
+    # 12. checks
     u8_launches = {"pixel world": px["matcher_launches"]["match_top2_u8"],
                    "overlapped": ov["launches"]["match_top2_u8"],
                    "descriptor world": res["matcher_launches"]["match_top2_u8"],
@@ -1425,6 +1940,8 @@ def main(argv=None) -> int:
                    "bundle_adjuster": cmds["bundle_adjuster"]["launches"]["nn_argmin"],
                    "hierarchical_mapper": cmds["hierarchical_mapper"]["launches"]["nn_argmin"]}
     u8_launches["spatial_matcher"] = cmds["spatial_matcher"]["launches"]["match_top2_u8"]
+    for label in ("vocab_tree_matcher", "sequential_matcher loop detection"):
+        u8_launches[label] = ph["retrieval"]["commands"][label]["launches"]["match_top2_u8"]
     for path, n in u8_launches.items():
         if n <= 0:
             raise AssertionError(f"the {path} run never launched the uint8 K1")
@@ -1452,6 +1969,7 @@ def main(argv=None) -> int:
     if not cl["median_reproj_px"] < 1.0:
         raise AssertionError(f"classic: median reprojection error {cl['median_reproj_px']} >= 1 px")
     _require_sfm_tools(st, px, args.n_images)
+    _require_retrieval_and_rigs(ph, args.n_images)
 
     def entry(name, source, line, launches, rec, **more):
         return {

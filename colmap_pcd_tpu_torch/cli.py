@@ -6,7 +6,8 @@ Every command runs on CUDA. `--device cpu`, anywhere on the line, asks for
 the CPU instead (`--device cuda` is the default); `main` strips the flag
 before the command parses its own, and resolves the device first, so a
 command raises when CUDA is absent and the CPU was not asked for. The
-commands in `_NOT_PORTED` report that they are not yet ported and return 1.
+dense commands in `_NOT_PORTED` (ROADMAP.md queue 1 step 10) report that
+they are not yet ported and return 1.
 """
 
 from __future__ import annotations
@@ -21,8 +22,6 @@ from .utils.config import OptionManager
 # the rest of the JAX package's command registry, each with the ROADMAP.md
 # queue 1 step that ports it
 _NOT_PORTED = {
-    "vocab_tree_matcher": 8, "vocab_tree_builder": 8, "vocab_tree_retriever": 8,
-    "rig_bundle_adjuster": 9,
     "patch_match_stereo": 10, "stereo_fusion": 10, "poisson_mesher": 10, "delaunay_mesher": 10,
 }
 
@@ -186,23 +185,80 @@ def cmd_exhaustive_matcher(argv, device):
     return 0
 
 
+def _flag(value: str | None, default: bool = False) -> bool:
+    """A 0/1 (false/true) flag's value; `default` where it was not given."""
+    return default if value is None else value.lower() in ("1", "true")
+
+
 def cmd_sequential_matcher(argv, device):
     """Sequential matching with the JAX CLI's quadratic overlap (pairs d
-    and 2^d apart for d <= overlap)."""
-    om, _ = _opt([a for a in argv if not a.startswith("--Sequential")])
-    overlap = 10
-    loop = False
-    it = iter(argv)
-    for a in it:
-        if a == "--SequentialMatching.overlap":
-            overlap = int(next(it))
-        elif a == "--SequentialMatching.loop_detection":
-            loop = next(it).lower() in ("1", "true")
+    and 2^d apart for d <= overlap); --SequentialMatching.loop_detection 1
+    adds retrieval loop candidates, --SequentialMatching.spatial_rerank 1
+    re-ranks them by vote-and-verify."""
+    p, rest = _split(argv, "SequentialMatching.overlap", "SequentialMatching.loop_detection",
+                     "SequentialMatching.spatial_rerank")
+    om, _ = _opt([a for a in rest if not a.startswith("--Sequential")])
     from .models.feature_pipeline import run_sequential_matcher
 
-    n = run_sequential_matcher(om.database_path, om.sift_matching, overlap=overlap,
-                               loop_detection=loop, device=device)
+    n = run_sequential_matcher(
+        om.database_path, om.sift_matching, overlap=int(p["SequentialMatching.overlap"] or 10),
+        loop_detection=_flag(p["SequentialMatching.loop_detection"]),
+        loop_spatial_rerank=_flag(p["SequentialMatching.spatial_rerank"]), device=device,
+    )
     print(f"Verified {n} image pairs")
+    return 0
+
+
+def cmd_vocab_tree_matcher(argv, device):
+    """Retrieval matching: each image against its --VocabTreeMatching.num_images
+    most similar by VLAD (default 100), optionally re-ranked by
+    vote-and-verify (--VocabTreeMatching.spatial_rerank 1)."""
+    p, rest = _split(argv, "VocabTreeMatching.num_images", "VocabTreeMatching.spatial_rerank")
+    om, _ = _opt([a for a in rest if not a.startswith("--VocabTreeMatching")])
+    from .models.feature_pipeline import run_vocab_tree_matcher
+
+    n = run_vocab_tree_matcher(
+        om.database_path, om.sift_matching, num_images=int(p["VocabTreeMatching.num_images"] or 100),
+        spatial_rerank=_flag(p["VocabTreeMatching.spatial_rerank"]), device=device,
+    )
+    print(f"Verified {n} retrieved pairs")
+    return 0
+
+
+def _database_index(database_path: str, device):
+    """(VLAD index of every database image, {image_id: name})."""
+    from .models.database import Database
+    from .ops import retrieval
+
+    db = Database(database_path)
+    descs = {i: db.read_descriptors(i).astype(np.float32) for i in db.images()}
+    names = {i: v["name"] for i, v in db.images().items()}
+    db.close()
+    return retrieval.build_index(descs, device=device), names
+
+
+def cmd_vocab_tree_builder(argv, device):
+    """Build and save a retrieval vocabulary (the VLAD k-means centroids,
+    `np.savez(..., centroids=...)`) from the database's descriptors
+    (RunVocabTreeBuilder analog)."""
+    p, _ = _split(argv, "database_path", "vocab_tree_path")
+    index, _names = _database_index(p["database_path"], device)
+    cent = index.centroids.cpu().numpy()
+    np.savez(p["vocab_tree_path"], centroids=cent)
+    print(f"Saved vocabulary ({cent.shape[0]} words) to {p['vocab_tree_path']}")
+    return 0
+
+
+def cmd_vocab_tree_retriever(argv, device):
+    """Rank database images against each image (RunVocabTreeRetriever): one
+    line per image, its --num_images (default 10) most similar."""
+    p, _ = _split(argv, "database_path", "num_images", "vocab_tree_path")
+    from .ops import retrieval
+
+    index, names = _database_index(p["database_path"], device)
+    k = int(p["num_images"] or 10)
+    for i in index.ids:
+        print(f"{names[i]}: " + ", ".join(names[j] for j in retrieval.query(index, i, k)))
     return 0
 
 
@@ -219,7 +275,7 @@ def cmd_spatial_matcher(argv, device):
     """GPS/position-prior neighbor matching. Locations come from a text file
     (--location_path: 'name lat lon alt' or 'name x y z')."""
     p, rest = _split(argv, "location_path", "SpatialMatching.is_gps")
-    is_gps = (p["SpatialMatching.is_gps"] or "0").lower() in ("1", "true")
+    is_gps = _flag(p["SpatialMatching.is_gps"])
     om, _ = _opt(rest)
     from .models.database import Database
     from .models.feature_pipeline import run_spatial_matcher
@@ -393,6 +449,40 @@ def cmd_bundle_adjuster(argv, device):
     return 0 if ok else 1
 
 
+def cmd_rig_bundle_adjuster(argv, device):
+    """Rig-constrained bundle adjustment (RunRigBundleAdjuster,
+    exe/sfm.cc): image poses are re-composed from per-snapshot rig poses
+    and per-rig-camera relative poses (--rig_config_path, the reference's
+    JSON), then jointly optimized with the points."""
+    p, _ = _split(argv, "input_path", "output_path", "rig_config_path",
+                  "RigBundleAdjustment.refine_relative_poses", "estimate_rig_poses_from_images")
+    if not (p["input_path"] and p["output_path"] and p["rig_config_path"]):
+        print("usage: rig_bundle_adjuster --input_path M --output_path O "
+              "--rig_config_path rig.json [--RigBundleAdjustment.refine_relative_poses 0|1]")
+        return 1
+    from .models.camera_rig import read_rig_config
+    from .models.reconstruction import Reconstruction
+    from .models.rig_adjuster import RigBAOptions, RigBundleAdjuster
+
+    rec = Reconstruction.read(p["input_path"])
+    rigs = read_rig_config(p["rig_config_path"], rec)
+    if _flag(p["estimate_rig_poses_from_images"]):
+        for rig in rigs:
+            rig.compute_relative_poses(rec)
+    for i, rig in enumerate(rigs):
+        print(f"rig {i}: {rig.num_cameras()} cameras, {rig.num_snapshots()} snapshots")
+    refine = _flag(p["RigBundleAdjustment.refine_relative_poses"], True)
+    adj = RigBundleAdjuster(RigBAOptions(refine_relative_poses=refine), device=device)
+    ok = adj.solve(rec, rigs)
+    if ok:
+        print(f"rig BA: cost {adj.initial_cost:.4g} -> {adj.final_cost:.4g} "
+              f"in {adj.iterations} iterations")
+        rec.write(p["output_path"])
+    else:
+        print("rig BA failed")
+    return 0 if ok else 1
+
+
 def cmd_image_registrator(argv, device):
     """Register new database images into an existing model WITHOUT mapping
     (RunImageRegistrator, exe/image.cc:239): PnP + pose refine per image, no
@@ -424,7 +514,7 @@ def cmd_automatic_reconstructor(argv, device):
     ported yet (ROADMAP.md queue 1 step 10)."""
     p, filtered = _split(argv, "workspace_path", "image_path", "dense")
     workspace, image_path = p["workspace_path"], p["image_path"]
-    if (p["dense"] or "0").lower() in ("1", "true"):
+    if _flag(p["dense"]):
         print("automatic_reconstructor: the dense stage (undistortion -> stereo -> fusion -> meshing) "
               "is not yet ported to the PyTorch package; run without --dense 1")
         return 1
@@ -1001,12 +1091,16 @@ COMMANDS = {
     "exhaustive_matcher": cmd_exhaustive_matcher,
     "sequential_matcher": cmd_sequential_matcher,
     "transitive_matcher": cmd_transitive_matcher,
+    "vocab_tree_matcher": cmd_vocab_tree_matcher,
+    "vocab_tree_builder": cmd_vocab_tree_builder,
+    "vocab_tree_retriever": cmd_vocab_tree_retriever,
     "spatial_matcher": cmd_spatial_matcher,
     "matches_importer": cmd_matches_importer,
     "mapper": cmd_mapper,
     "hierarchical_mapper": cmd_hierarchical_mapper,
     "point_triangulator": cmd_point_triangulator,
     "bundle_adjuster": cmd_bundle_adjuster,
+    "rig_bundle_adjuster": cmd_rig_bundle_adjuster,
     "image_registrator": cmd_image_registrator,
     "automatic_reconstructor": cmd_automatic_reconstructor,
     "model_converter": cmd_model_converter,

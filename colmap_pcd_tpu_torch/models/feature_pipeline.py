@@ -16,11 +16,11 @@ src/feature/matching.{h,cc}, the matcher controller family):
     optionally re-matches guided by F, and writes `matches` and
     `two_view_geometries`.
 
-Ported matchers: exhaustive, sequential, spatial, transitive, image-pairs
-and feature-pairs (raw / inlier match import). Not ported yet (ROADMAP.md
-queue 1 step 8): retrieval (the vocab-tree matcher, and the sequential
-matcher's loop detection, which raises). `use_pallas` is accepted
-and has no effect: on a CUDA device K1 is the matcher.
+Matchers: exhaustive, sequential (with retrieval loop detection),
+spatial, transitive, vocab-tree (VLAD retrieval, ops/retrieval.py, with
+optional vote-and-verify re-ranking), image-pairs and feature-pairs (raw /
+inlier match import). `use_pallas` is accepted and has no effect: on a
+CUDA device K1 is the matcher.
 """
 
 from __future__ import annotations
@@ -39,6 +39,7 @@ from ..ops import camera_models as cm
 from ..ops import match_kernel
 from ..ops import matching as matching_ops
 from ..ops import np_geom
+from ..ops import retrieval
 from ..ops import sift as sift_ops
 from ..utils import image as image_utils
 from ..utils.camera_database import exif_focal_length
@@ -541,25 +542,53 @@ def sequential_pair_list(ids: list[int], overlap: int, quadratic_overlap: bool):
     return pair_list
 
 
+def _retrieval_index(db: Database, ids: list, with_geoms: bool, device):
+    """VLAD index of the database's images on `device`, with the keypoint
+    geometries that vote-and-verify re-ranking reads when asked for."""
+    return retrieval.build_index(
+        {i: np.asarray(db.read_descriptors(i), np.float32) for i in ids},
+        geoms_by_image={
+            i: np.asarray(db.read_keypoints(i), np.float32)[:, :4] for i in ids
+        } if with_geoms else None,
+        device=device,
+    )
+
+
 def run_sequential_matcher(
     database_path: str,
     config: SiftMatchingConfig = SiftMatchingConfig(),
     overlap: int = 10,
     quadratic_overlap: bool = True,
     loop_detection: bool = False,
+    loop_detection_period: int = 10,
+    loop_detection_num_images: int = 30,
+    loop_spatial_rerank: bool = False,
     device=None,
 ) -> int:
-    """Consecutive-pair matching (SequentialFeatureMatcher, matching.h:434).
-    Retrieval loop closure (loop_detection) is not ported yet."""
-    if loop_detection:
-        raise NotImplementedError(
-            "sequential matcher loop detection needs retrieval (ops/retrieval), "
-            "not ported yet: ROADMAP.md queue 1 step 8"
-        )
+    """Consecutive-pair matching with optional retrieval loop closure
+    (SequentialFeatureMatcher, matching.h:434): every loop_detection_period
+    -th image queries the VLAD index for loop_detection_num_images
+    candidates. loop_spatial_rerank re-ranks them by vote-and-verify
+    effective inliers, the false-loop suppressor on repetitive structure."""
     db = Database(database_path)
     w = _MatchWorker(db, config, device)
     ids = sorted(db.images().keys())  # name-ordered assumed == id order
-    n = w.match_pairs(sequential_pair_list(ids, overlap, quadratic_overlap))
+    pair_list = sequential_pair_list(ids, overlap, quadratic_overlap)
+    n = w.match_pairs(pair_list)
+    if loop_detection:
+        index = _retrieval_index(db, ids, loop_spatial_rerank, w.device)
+        # set-based dedup, seeded with the sequential pairs so overlapping
+        # loop candidates are neither re-matched nor double-counted
+        seen = {(min(i, j), max(i, j)) for i, j in pair_list}
+        loop_pairs = []
+        for a in range(0, len(ids), loop_detection_period):
+            i = ids[a]
+            for j in retrieval.query(index, i, loop_detection_num_images, rerank=loop_spatial_rerank):
+                key = (min(i, j), max(i, j))
+                if j != i and key not in seen:
+                    seen.add(key)
+                    loop_pairs.append(key)
+        n += w.match_pairs(loop_pairs)
     db.close()
     return n
 
@@ -697,5 +726,33 @@ def run_feature_pairs_importer(
             db.write_two_view_geometry(id1, id2, m, two_view_mod.CALIBRATED)
         db.commit()
         n += 1
+    db.close()
+    return n
+
+
+def run_vocab_tree_matcher(
+    database_path: str,
+    config: SiftMatchingConfig = SiftMatchingConfig(),
+    num_images: int = 100,
+    spatial_rerank: bool = False,
+    num_verify: int = 20,
+    device=None,
+) -> int:
+    """Retrieval-based matching (VocabTreeFeatureMatcher, matching.h:455):
+    VLAD global descriptors instead of a FLANN vocab tree; every image is
+    matched against its num_images most similar. spatial_rerank re-orders
+    each query's top num_verify by vote-and-verify effective inlier count
+    (retrieval/vote_and_verify.cc analog, ops/vote_verify.py)."""
+    db = Database(database_path)
+    w = _MatchWorker(db, config, device)
+    ids = sorted(db.images().keys())
+    index = _retrieval_index(db, ids, spatial_rerank, w.device)
+    pair_list, seen = [], set()
+    for i in ids:
+        for j in retrieval.query(index, i, num_images, rerank=spatial_rerank, num_verify=num_verify):
+            if j > i and (i, j) not in seen:
+                seen.add((i, j))
+                pair_list.append((i, j))
+    n = w.match_pairs(pair_list)
     db.close()
     return n

@@ -333,9 +333,7 @@ class _Layout(NamedTuple):
 def _layout(problem: BAProblem, cfg: BAConfig) -> _Layout:
     C = problem.cam_q.shape[0]
     K = problem.intr.shape[0]
-    P, T = problem.pt_obs.shape
     N = problem.obs_cam.shape[0]
-    dev = problem.cam_q.device
     nbp = cfg.num_pose_blocks if cfg.num_pose_blocks > 0 else C
     roles = 3 if cfg.refine_intrinsics else 1
     nb = nbp + (2 * K if cfg.refine_intrinsics else 0)
@@ -345,28 +343,33 @@ def _layout(problem: BAProblem, cfg: BAConfig) -> _Layout:
         kid = problem.cam_k[problem.obs_cam]
         blk = torch.cat([blk, nbp + 2 * kid, nbp + 2 * kid + 1])
         pt3 = torch.cat([pt3] * 3)
-    csize = min(cfg.point_chunk, P)
+    csize, slot_all, blk_slots = _slot_tables(problem.pt_obs, N, roles, blk, cfg.point_chunk)
+    return _Layout(nbp, nb, roles, csize, blk, pt3, slot_all, blk_slots, uses_pcg(problem, cfg))
+
+
+def _slot_tables(pt_obs: Tensor, N: int, roles: int, blk: Tensor, point_chunk: int):
+    """(csize, slot_all [roles*N], blk_slots [Ppad, roles*T]): pt_obs [P, T]
+    inverted once into a slot per camera-side entry. Entry (p, t) of role r
+    lives at p*Tn + r*T + t; observations the table does not reference
+    (padding) go to the sentinel slot Ppad*Tn, which is dropped. blk [roles*N]
+    is each entry's 6-block."""
+    P, T = pt_obs.shape
+    dev = pt_obs.device
+    csize = min(point_chunk, P)
     Ppad = -(-P // csize) * csize
     Tn = roles * T
-    # invert pt_obs once into a slot per observation: entry (p, t) of role 0
-    # lives at p*Tn + t; observations the table does not reference (padding)
-    # go to the sentinel slot Ppad*Tn, which is dropped
-    flat = problem.pt_obs.reshape(-1)
+    flat = pt_obs.reshape(-1)
     fidx = torch.arange(P * T, device=dev)
     base = (fidx // T) * Tn + fidx % T
     sent = Ppad * Tn
     slot_of_obs = torch.full((N + 1,), sent, dtype=torch.int64, device=dev)
     slot_of_obs.scatter_(0, torch.where(flat >= 0, flat, N), base)
     slot_of_obs = slot_of_obs[:N]
-    if roles == 3:
-        slot_all = torch.cat([slot_of_obs, slot_of_obs + T, slot_of_obs + 2 * T])
-        slot_all = torch.where(slot_all < sent, slot_all, sent)
-    else:
-        slot_all = slot_of_obs
+    slot_all = torch.cat([slot_of_obs + r * T for r in range(roles)])
+    slot_all = torch.where(slot_all < sent, slot_all, sent)
     blk_slots = torch.zeros(sent + 1, dtype=torch.int64, device=dev)
     blk_slots[slot_all] = blk
-    return _Layout(nbp, nb, roles, csize, blk, pt3, slot_all, blk_slots[:sent].view(Ppad, Tn),
-                   uses_pcg(problem, cfg))
+    return csize, slot_all, blk_slots[:sent].view(Ppad, Tn)
 
 
 def _gn_system(problem: BAProblem, cfg: BAConfig, lay: _Layout, cam_q, cam_t, intr, points, lam):
@@ -409,7 +412,18 @@ def _gn_system(problem: BAProblem, cfg: BAConfig, lay: _Layout, cam_q, cam_t, in
         Jp3 = torch.cat([Jp, Jp, Jp])
     else:
         Jcam, r3, Jp3 = Jc, r, Jp
-    W = torch.einsum("mri,mrj->mij", Jcam, Jp3)  # [M,6,3] coupling per entry
+    return _reduced_step(cfg, lay, Jcam, r3, Jp3, Hpp_inv, b_p, lam)
+
+
+def _reduced_step(cfg, lay: _Layout, Jcam, rc, Jpc, Hpp_inv, b_p, lam, damp_reduced: bool = False):
+    """The camera step of the point-eliminated system and the points'
+    back-substitution, given the camera-side entries (Jcam [M,2,6], their
+    residuals rc [M,2] and point Jacobians Jpc [M,2,3], M = roles * N) and
+    the damped point blocks' inverses. Returns (dx_cam [nb,6], dx_points
+    [P,3], host syncs taken by the camera solve)."""
+    P = Hpp_inv.shape[0]
+    f32 = dict(dtype=torch.float32, device=Hpp_inv.device)
+    W = torch.einsum("mri,mrj->mij", Jcam, Jpc)  # [M,6,3] coupling per entry
 
     # ---- the entries packed by point: slot (p, t) of a [Ppad, Tn] table ----
     Ppad, Tn = lay.blk_slots.shape
@@ -420,8 +434,10 @@ def _gn_system(problem: BAProblem, cfg: BAConfig, lay: _Layout, cam_q, cam_t, in
     Hinv_c = torch.nn.functional.pad(Hpp_inv, (0, 0, 0, 0, 0, pad))
     bp_c = torch.nn.functional.pad(b_p, (0, 0, 0, pad))
 
-    step = _pcg_camera_step if lay.pcg else _dense_camera_step
-    dx_cam, ok, syncs = step(cfg, lay, Jcam, r3, Wslots, Hinv_c, bp_c, lam)
+    if lay.pcg:
+        dx_cam, ok, syncs = _pcg_camera_step(cfg, lay, Jcam, rc, Wslots, Hinv_c, bp_c, lam)
+    else:
+        dx_cam, ok, syncs = _dense_camera_step(cfg, lay, Jcam, rc, Wslots, Hinv_c, bp_c, lam, damp_reduced)
 
     # ---- back-substitute points: dx_p = Hinv (b_p - sum_e W_e^T dx[blk_e]) --
     u = torch.einsum("mij,mi->mj", W, dx_cam[lay.blk])
@@ -430,9 +446,11 @@ def _gn_system(problem: BAProblem, cfg: BAConfig, lay: _Layout, cam_q, cam_t, in
     return dx_cam, torch.where(ok, dx_p, torch.zeros_like(dx_p)), syncs
 
 
-def _dense_camera_step(cfg, lay: _Layout, Jcam, r3, Wslots, Hinv_c, bp_c, lam):
+def _dense_camera_step(cfg, lay: _Layout, Jcam, r3, Wslots, Hinv_c, bp_c, lam, damp_reduced: bool = False):
     """DENSE_SCHUR: assemble the reduced camera system S and Cholesky-factor
-    it. Returns (dx_cam [nb,6] zeroed on failure, ok, 0 host syncs)."""
+    it. LM damps diag(B) before point elimination (Ceres), or with
+    damp_reduced the diagonal of the reduced S (the JAX package's rig BA).
+    Returns (dx_cam [nb,6] zeroed on failure, ok, 0 host syncs)."""
     nb, roles, csize = lay.nb, lay.roles, lay.csize
     D = 6 * nb
     dev = Jcam.device
@@ -473,6 +491,8 @@ def _dense_camera_step(cfg, lay: _Layout, Jcam, r3, Wslots, Hinv_c, bp_c, lam):
         ).view(D)
 
     # ---- damping + unit diagonal for blocks without residuals --------------
+    if damp_reduced:
+        diagB = torch.diagonal(S).clone()
     dead = (torch.abs(diagB) < 1e-10).to(torch.float32)
     S = S + torch.diag(lam * diagB + 1e-8 + dead)
     # Jacobi scaling for f32 conditioning, then Cholesky

@@ -2,7 +2,8 @@
 
 Port of colmap_pcd_tpu/ops/ransac.py (`_draw_samples`, `_score`,
 `ransac_pnp`, the two-view banks `_ransac_two_view`,
-`ransac_{fundamental,essential,homography}`, and `ransac_similarity`):
+`ransac_{fundamental,essential,homography}`, `ransac_similarity` and the
+GR6P bank `ransac_generalized_relative_pose`):
 
   1. draw the minimal samples at once (uniform over the valid rows, or
      PROSAC-ordered when a per-row quality is given),
@@ -348,3 +349,67 @@ def ransac_similarity(
         best_in = torch.maximum(n_n, best_in)
     mask = (resid(q_b, t_b, s_b) < thr2) & ok
     return SimilarityResult(q_b, t_b, s_b, mask, torch.sum(mask))
+
+
+class GenRelPoseResult(NamedTuple):
+    q: Tensor
+    t: Tensor
+    inlier_mask: Tensor
+    num_inliers: Tensor
+
+
+def ransac_generalized_relative_pose(
+    f1: Tensor,  # [N,3] unit bearings in rig-1 frame
+    c1: Tensor,  # [N,3] ray origins in rig-1 frame
+    f2: Tensor,  # [N,3] unit bearings in rig-2 frame
+    c2: Tensor,  # [N,3] ray origins in rig-2 frame
+    valid: Tensor,  # [N]
+    generator: torch.Generator | None,
+    opts: RansacOptions = RansacOptions(num_hypotheses=256),
+    sample_idx: Tensor | None = None,
+    perturb: Tensor | None = None,
+) -> GenRelPoseResult:
+    """Rig-vs-rig relative pose: a GR6P hypothesis bank + GR6P LO refits
+    (the reference's LORANSAC<GR6PEstimator, GR6PEstimator>,
+    estimators/generalized_relative_pose_test.cc:108). H/4 samples of 8 rays
+    are solved in one batched `gr6p` (2 restarts, 20 steps), each giving
+    four translation candidates, scored by the generalized Sampson error
+    (angular units: max_error = pixel threshold / focal); the best is
+    refit on its inliers lo_rounds times (1 restart from the incumbent, 32
+    steps). Degenerate for pure translation and single-camera samples, as
+    upstream documents. sample_idx [H/4, 8] and perturb [H/4, 2, 3] replace
+    the draws from `generator` (tests)."""
+    ns = max(1, opts.num_hypotheses // 4)
+    idx = _draw_samples(generator, valid, ns, 8) if sample_idx is None else sample_idx
+    q, ts, t_ok = solvers.gr6p(f1[idx], c1[idx], f2[idx], c2[idx], generator=generator,
+                              num_restarts=2, num_iters=20, perturb=perturb)
+    qs = q.repeat_interleave(4, dim=0)  # [H,4] one rotation per 4 translations
+    ts = ts.reshape(-1, 3)
+    t_ok = t_ok.reshape(-1)
+
+    def resid(q, t):
+        return solvers.generalized_sampson_error(q, t, f1, c1, f2, c2)
+
+    errs = torch.where(t_ok[:, None], resid(qs, ts), torch.full((1,), 1e12, device=f1.device))
+    thr2 = opts.max_error**2
+    n_in, score = _score(errs, valid, thr2)
+    best = torch.argmax(score)
+    q_b, t_b, best_in = qs[best], ts[best], n_in[best]
+    ok = valid > 0
+    no_perturb = torch.zeros((1, 3), dtype=f1.dtype, device=f1.device)
+    for _ in range(opts.lo_rounds):
+        inl = ((resid(q_b, t_b) < thr2) & ok).to(f1.dtype)
+        # warm-start the non-minimal refit from the incumbent rotation
+        w0 = q_b[0]
+        cay = q_b[1:] / torch.where(torch.abs(w0) < 1e-8, torch.full_like(w0, 1e-8), w0)
+        q_n, ts_n, tok_n = solvers.gr6p(f1, c1, f2, c2, mask=inl, num_restarts=1, num_iters=32,
+                                        cayley0=cay, perturb=no_perturb)
+        e_n = torch.where(tok_n[:, None], resid(q_n.expand(4, 4), ts_n), torch.full((1,), 1e12, device=f1.device))
+        n_n = torch.sum((e_n < thr2) & ok, dim=-1)
+        k_best = torch.argmax(n_n)
+        better = n_n[k_best] >= best_in
+        q_b = torch.where(better, q_n, q_b)
+        t_b = torch.where(better, ts_n[k_best], t_b)
+        best_in = torch.maximum(n_n[k_best], best_in)
+    mask = (resid(q_b, t_b) < thr2) & ok
+    return GenRelPoseResult(q_b, t_b, mask, torch.sum(mask))

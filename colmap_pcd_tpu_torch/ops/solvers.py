@@ -1,5 +1,5 @@
-"""Batched geometric solvers: triangulation, P3P, EPnP, Umeyama, and the
-two-view E/F/H solvers.
+"""Batched geometric solvers: triangulation, P3P, EPnP, Umeyama, the
+two-view E/F/H solvers, and the generalized (multi-camera) GP6P and GR6P.
 
 Port of colmap_pcd_tpu/ops/solvers.py. Every function broadcasts over
 leading batch dims (typically [pairs, samples]) where the JAX package
@@ -707,3 +707,191 @@ def homography_transfer_error(H: Tensor, uv1: Tensor, uv2: Tensor) -> Tensor:
     w = y[..., 2:3]
     w = torch.where(torch.abs(w) < 1e-12, torch.full_like(w, 1e-12), w)
     return torch.sum((y[..., :2] / w - uv2) ** 2, dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# generalized (multi-camera) pose
+
+
+def gp6p_dlt(rays_o: Tensor, rays_d: Tensor, X: Tensor, mask: Tensor | None = None) -> tuple[Tensor, Tensor]:
+    """Generalized absolute pose (world -> rig) from >= 6 ray/point matches,
+    batched over leading dims: rays_o/rays_d [..., n, 3] ray origins and unit
+    directions in the RIG frame, X [..., n, 3] world points, optional weights
+    [..., n]. Returns (q [..., 4], t [..., 3]).
+
+    The linear generalized-DLT constraint (R X_i + t - o_i) x d_i = 0 (the
+    JAX package's replacement for the reference's GP3P polynomial,
+    estimators/generalized_absolute_pose.{h,cc}): a least-squares solve for
+    [vec(R); t], the SO(3) projection of R, then t re-solved with R fixed."""
+    n = X.shape[-2]
+    w = torch.ones(X.shape[:-1], dtype=X.dtype, device=X.device) if mask is None else mask.to(X.dtype)
+    dx, dy, dz = rays_d.unbind(-1)
+    zero = torch.zeros_like(dx)
+    Dx = torch.stack([
+        torch.stack([zero, -dz, dy], -1),
+        torch.stack([dz, zero, -dx], -1),
+        torch.stack([-dy, dx, zero], -1),
+    ], dim=-2)  # [..., n, 3, 3] = [d]_x
+    batch = X.shape[:-2]
+    # unknowns [r row-major (9); t (3)]: rows [d]_x kron(X_i^T) and [d]_x
+    kron = torch.einsum("...nab,...nc->...nabc", Dx, X).reshape(batch + (n, 3, 9))
+    A = torch.cat([kron, Dx], dim=-1)  # [..., n, 3, 12]
+    b = torch.einsum("...nab,...nb->...na", Dx, rays_o)
+    ws = torch.sqrt(torch.clamp(w, min=0.0))[..., None, None]
+    A = (A * ws).reshape(batch + (3 * n, 12))
+    bf = (b * ws[..., 0]).reshape(batch + (3 * n, 1))
+    eye12 = torch.eye(12, dtype=X.dtype, device=X.device)
+    x = torch.linalg.solve_ex(A.mT @ A + 1e-9 * eye12, A.mT @ bf)[0][..., 0]
+    M = x[..., :9].reshape(batch + (3, 3))
+    # project to SO(3) (det +1)
+    U, _sv, Vt = _svd(M)
+    d = torch.sign(det3(U @ Vt))
+    d = torch.where(d == 0, torch.ones_like(d), d)
+    diag = torch.stack([torch.ones_like(d), torch.ones_like(d), d], dim=-1)
+    R = U @ (diag[..., :, None] * Vt)
+    # re-solve t linearly with R fixed: [d]_x t = [d]_x (o - R X)
+    rhs = torch.einsum("...nab,...nb->...na", Dx, rays_o - X @ R.mT)
+    T_A = (Dx * ws).reshape(batch + (3 * n, 3))
+    T_b = (rhs * ws[..., 0]).reshape(batch + (3 * n, 1))
+    eye3 = torch.eye(3, dtype=X.dtype, device=X.device)
+    t = torch.linalg.solve_ex(T_A.mT @ T_A + 1e-9 * eye3, T_A.mT @ T_b)[0][..., 0]
+    return se3.rotmat_to_quat(R), t
+
+
+def _cayley_rotmat(cayley: Tensor) -> Tensor:
+    """Cayley parameters [..., 3] -> rotation [..., 3, 3]."""
+    cx, cy, cz = cayley.unbind(-1)
+    s = 1.0 + cx * cx + cy * cy + cz * cz
+    R = torch.stack([
+        1 + cx * cx - cy * cy - cz * cz, 2 * (cx * cy - cz), 2 * (cx * cz + cy),
+        2 * (cx * cy + cz), 1 - cx * cx + cy * cy - cz * cz, 2 * (cy * cz - cx),
+        2 * (cx * cz - cy), 2 * (cy * cz + cx), 1 - cx * cx - cy * cy + cz * cz,
+    ], dim=-1)
+    return R.reshape(cayley.shape[:-1] + (3, 3)) / s[..., None, None]
+
+
+def _gr6p_G(cayley: Tensor, f1: Tensor, c1: Tensor, f2: Tensor, c2: Tensor, w: Tensor) -> Tensor:
+    """4x4 PSD system [..., 4, 4] of the generalized epipolar constraint at
+    rotation `cayley` [..., 3]: each ray pair (f [..., n, 3] bearings, c
+    [..., n, 3] origins, weights w [..., n]) contributes g = [a; b] with
+
+        a = (R f1) x f2,   b = (R c1 - c2) . a,
+
+    so that the true (R, t) makes [t; 1] the nullvector of G = sum w g g^T
+    (the JAX package's direct O(n) form of estimators/
+    generalized_relative_pose.cc:325-478)."""
+    R = _cayley_rotmat(cayley)
+    Rf1 = torch.einsum("...ij,...nj->...ni", R, f1)
+    a = torch.linalg.cross(Rf1, f2.expand_as(Rf1), dim=-1)
+    b = torch.sum((torch.einsum("...ij,...nj->...ni", R, c1) - c2) * a, dim=-1)
+    g = torch.cat([a, b[..., None]], dim=-1)  # [..., n, 4]
+    return torch.einsum("...n,...ni,...nj->...ij", w, g, g)
+
+
+def cayley_to_quat(cayley: Tensor) -> Tensor:
+    """Cayley [..., 3] -> unit quaternion (w, x, y, z): (1, c)/sqrt(1+|c|^2)."""
+    q = torch.cat([torch.ones_like(cayley[..., :1]), cayley], dim=-1)
+    return q / torch.linalg.norm(q, dim=-1, keepdim=True)
+
+
+def gr6p(
+    f1: Tensor,  # [..., n, 3] unit bearing vectors in rig-1 frame
+    c1: Tensor,  # [..., n, 3] ray origins (camera centers) in rig-1 frame
+    f2: Tensor,  # [..., n, 3] unit bearings in rig-2 frame
+    c2: Tensor,  # [..., n, 3] ray origins in rig-2 frame
+    mask: Tensor | None = None,
+    generator: torch.Generator | None = None,
+    num_restarts: int = 4,
+    num_iters: int = 48,
+    cayley0: Tensor | None = None,
+    perturb: Tensor | None = None,
+) -> tuple[Tensor, Tensor, Tensor]:
+    """Generalized (multi-camera) relative pose from >= 6 ray
+    correspondences, batched over leading dims (Kneip & Li, CVPR'14; the
+    reference's GR6P, estimators/generalized_relative_pose.{h,cc}): find
+    (R, t) with x_rig2 = R x_rig1 + t by minimizing the smallest eigenvalue
+    of G(R) (`_gr6p_G`) over the Cayley rotation manifold, then read the
+    translation off G's eigenvectors.
+
+    As in the JAX package: a Kabsch init on the bearing clouds, restarts at
+    init + perturbations in [-0.3, 0.3) (row 0 unperturbed), and a
+    fixed-length backtracking descent along the normalized gradient, every
+    accept/reject a `torch.where` on the device. The gradient of the smallest
+    eigenvalue is v^T (dG/dc) v for its unit eigenvector v (what the JAX
+    package's `jax.grad` through `eigvalsh` computes), taken by
+    `torch.func.grad` with v held fixed; each step costs one batched `_eigh`.
+    `perturb` [..., num_restarts, 3] replaces the draw from `generator`
+    (tests pass the JAX package's).
+
+    Returns (q [..., 4], ts [..., 4, 3], t_valid [..., 4]): one rotation and
+    a translation candidate from each eigenvector of G, for a RANSAC bank to
+    score."""
+    w = torch.ones(f1.shape[:-1], dtype=f1.dtype, device=f1.device) if mask is None else mask.to(f1.dtype)
+    if cayley0 is None:
+        # Kabsch on the bearing clouds (ComputeRotationBetweenPoints, :118-146);
+        # rotmat -> cayley: C = (R - I)(R + I)^-1, c = (-C12, C02, -C01)
+        q0, _, _ = umeyama(f1, f2, with_scale=False, mask=w)
+        R0 = se3.quat_to_rotmat(q0)
+        eye = torch.eye(3, dtype=f1.dtype, device=f1.device)
+        C = (R0 - eye) @ torch.linalg.inv_ex(R0 + eye + 1e-12 * eye)[0]
+        cayley0 = torch.stack([-C[..., 1, 2], C[..., 0, 2], -C[..., 0, 1]], dim=-1)
+    if perturb is None:
+        shape = f1.shape[:-2] + (num_restarts, 3)
+        gdev = generator.device if generator is not None else f1.device
+        perturb = torch.rand(shape, generator=generator, device=gdev).to(f1) * 0.6 - 0.3
+        perturb[..., 0, :] = 0.0
+    cay = cayley0[..., None, :] + perturb.to(f1)  # [..., R, 3]
+    # the restart axis on the data
+    f1r, c1r, f2r, c2r = (x[..., None, :, :] for x in (f1, c1, f2, c2))
+    wr = w[..., None, :]
+
+    def smallest(c):  # (eigenvalue, unit eigenvector) of G(c), smallest
+        evals, evecs = _eigh(_gr6p_G(c, f1r, c1r, f2r, c2r, wr))
+        return evals[..., 0], evecs[..., :, 0]
+
+    cur, v = smallest(cay)
+    lam = torch.full(cur.shape, 0.01, dtype=f1.dtype, device=f1.device)
+    for _ in range(num_iters):
+        vv = v
+
+        def rayleigh(c):
+            G = _gr6p_G(c, f1r, c1r, f2r, c2r, wr)
+            return torch.sum(vv * (G @ vv[..., None])[..., 0])
+
+        g = torch.func.grad(rayleigh)(cay)
+        cand = cay - lam[..., None] * g / torch.clamp(torch.linalg.norm(g, dim=-1, keepdim=True), min=1e-12)
+        cnew, vnew = smallest(cand)
+        better = cnew < cur
+        cay = torch.where(better[..., None], cand, cay)
+        cur = torch.where(better, cnew, cur)
+        v = torch.where(better[..., None], vnew, v)
+        lam = torch.where(better, lam * 1.5, lam * 0.5)
+    best = torch.argmin(cur, dim=-1)
+    cay = torch.gather(cay, -2, best[..., None, None].expand(best.shape + (1, 3)))[..., 0, :]
+
+    _, evecs = _eigh(_gr6p_G(cay, f1, c1, f2, c2, w))  # ascending
+    vh = evecs.mT  # rows = eigenvectors
+    denom = vh[..., 3]
+    t_valid = torch.abs(denom) > 1e-8
+    ts = vh[..., :3] / torch.where(torch.abs(denom) < 1e-8, torch.full_like(denom, 1e-8), denom)[..., None]
+    return cayley_to_quat(cay), ts, t_valid
+
+
+def generalized_sampson_error(q: Tensor, t: Tensor, f1: Tensor, c1: Tensor, f2: Tensor, c2: Tensor) -> Tensor:
+    """First-order (Sampson-style) squared error [..., N] of the generalized
+    epipolar constraint on Plücker rays, the scoring residual of GR6P banks:
+    r = ((R f1) x f2).t + (R c1 - c2).((R f1) x f2), normalized by its
+    gradient w.r.t. both bearings (angular units, as the reference's
+    normalized-coordinate Sampson error, generalized_relative_pose.cc:596-617).
+    q [..., 4], t [..., 3] broadcast against rays [N, 3]."""
+    R = se3.quat_to_rotmat(q)
+    Rf1 = torch.einsum("...ij,...nj->...ni", R, f1)
+    a = torch.linalg.cross(Rf1, f2.expand_as(Rf1), dim=-1)
+    base = torch.einsum("...ij,...nj->...ni", R, c1) - c2
+    r = torch.sum(a * t[..., None, :], dim=-1) + torch.sum(base * a, dim=-1)
+    # r = u . (R f1 x f2) with u = t + base
+    u = base + t[..., None, :]
+    dr_df1 = torch.einsum("...ni,...ij->...nj", torch.linalg.cross(f2.expand_as(u), u, dim=-1), R)
+    dr_df2 = torch.linalg.cross(u, Rf1, dim=-1)
+    denom = torch.sum(dr_df1**2, dim=-1) + torch.sum(dr_df2**2, dim=-1)
+    return r * r / torch.clamp(denom, min=1e-12)

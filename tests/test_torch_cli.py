@@ -50,7 +50,7 @@ def test_cli_mapper_lidar_world(tmp_path):
 
 
 def test_cli_reports_unported_commands(capsys):
-    assert cli.main(["vocab_tree_matcher", "--database_path", "x.db"]) == 1
+    assert cli.main(["patch_match_stereo", "--workspace_path", "x"]) == 1
     assert "not yet ported" in capsys.readouterr().out
     assert cli.main(["--help"]) == 0
 

@@ -39,9 +39,10 @@ def run(*argv) -> int:
 def test_cli_help_lists_the_ported_commands(capsys):
     assert cli.main([]) == 0
     listed = capsys.readouterr().out.split("commands:")[1].strip().split(", ")
-    assert len(listed) == 35 and "bundle_adjuster" in listed and "hierarchical_mapper" in listed
-    for cmd in ("vocab_tree_matcher", "vocab_tree_builder", "vocab_tree_retriever", "rig_bundle_adjuster",
-                "patch_match_stereo", "stereo_fusion", "poisson_mesher", "delaunay_mesher"):
+    assert len(listed) == 39 and "bundle_adjuster" in listed and "hierarchical_mapper" in listed
+    for cmd in ("vocab_tree_matcher", "vocab_tree_builder", "vocab_tree_retriever", "rig_bundle_adjuster"):
+        assert cmd in listed
+    for cmd in ("patch_match_stereo", "stereo_fusion", "poisson_mesher", "delaunay_mesher"):
         assert cmd not in listed
         assert cli.main([cmd, "--database_path", "x.db"]) == 1
         assert "not yet ported" in capsys.readouterr().out

@@ -29,11 +29,16 @@ def _world(tmp_path, seed, n_images, n_points, noise_px=0.3):
 
 
 def test_unported_matcher_options_raise(tmp_path):
-    """Loop detection points at the roadmap instead of running half a path
-    (extraction is ported: on a directory without images it extracts none)."""
+    """Every matcher option is ported now (loop detection through
+    retrieval): on an empty database the loop-detecting sequential matcher
+    verifies nothing on the CPU, and without a device it asks for CUDA,
+    which raises where there is none instead of falling back to the CPU."""
     assert pipeline_t.run_feature_extractor(str(tmp_path / "db.db"), str(tmp_path), device="cpu") == 0
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pipeline_t.run_sequential_matcher(str(tmp_path / "db.db"), MatchingConfigT(), loop_detection=True)
+    assert pipeline_t.run_sequential_matcher(str(tmp_path / "db.db"), MatchingConfigT(), loop_detection=True,
+                                             device="cpu") == 0
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            pipeline_t.run_sequential_matcher(str(tmp_path / "db.db"), MatchingConfigT(), loop_detection=True)
 
 
 def test_sequential_matcher_matches_jax(tmp_path):
