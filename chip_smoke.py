@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py [--n-images 100] [--descriptor-images 50]
                           [--overlap-images 30] [--classic-images 20]
-                          [--rig-snapshots 100] [--rig-points 20000] [--seed 0]
+                          [--rig-snapshots 100] [--rig-points 20000]
+                          [--dense-views N] [--seed 0]
 
 Phases, each printing its numbers on its own line:
   1. environment: the card's name and power limit (nvidia-smi), torch/CUDA;
@@ -92,7 +93,24 @@ Phases, each printing its numbers on its own line:
      0.3 deg) through rig_bundle_adjuster with refined relative poses; and
      ransac_generalized_relative_pose (GR6P) at 2 000 rays with 20%
      outliers and H = 256;
- 12. checks: match_top2_u8 launched by every matcher run (spatial_matcher,
+ 12. dense reconstruction on phase 10's undistorted workspace (100 PINHOLE
+     640x480 views and their model, in the lidar map's frame as
+     LidarMap.load holds it: the model's sparse points are measured against
+     the map first), each command through cli.main with the launch counts
+     zeroed just before it: patch_match_stereo at the defaults (64 depths,
+     4 sources, r = 3, bilateral, the geometric pass; seconds, views, peak
+     memory, seconds per view-pass, host fetches per view), stereo_fusion,
+     poisson_mesher at depth 7, delaunay_mesher in dense mode on the
+     workspace and in sparse mode on the model, and automatic_reconstructor
+     --dense 1 on the first 10 views with the lidar mapper's flags; then one
+     view's plane_sweep with both passes on the card and on the CPU on the
+     same inputs, and twice on the card (CUDA-event times, kernels per pass,
+     peak memory); the splat and spectral solve and the whole Poisson mesh
+     twice on the card; the point-to-plane distance to the lidar map of
+     every fused point and every mesh vertex (K2 through
+     LidarMap.nn_query), K2 timed at the fused cloud's query count beside
+     the host kd-tree. `--dense-views` keeps the first N registered views;
+ 13. checks: match_top2_u8 launched by every matcher run (spatial_matcher,
      vocab_tree_matcher and the loop-detecting sequential matcher
      included), match_top2 by the guided matcher and K2 by every lidar
      mapper run, bundle_adjuster and hierarchical_mapper; the pixel world
@@ -115,7 +133,12 @@ Phases, each printing its numbers on its own line:
      cap), rig BA reaches a mean reprojection error < 0.75 px with every
      relative pose within 2 mm and 0.02 deg of the truth and every image
      centre within 5 mm after a sim(3) alignment, and GR6P's rotation error
-     is < 1e-3 rad.
+     is < 1e-3 rad; the dense stage (DENSE_SAME_DEPTH and the constants
+     beside it): maps for every registered view with a source, the card's
+     sweep equal to the CPU's, two card runs of the sweep, the splat and the
+     mesh byte-identical, a non-empty fused cloud and Poisson mesh within
+     their point-to-plane bars, faces in both Delaunay meshes and in the
+     one-click pipeline's mesh.
 
 `--kernels-only` stops after phase 4 (on a corridor map built like the
 pixel world's) and prints no result line: a short first look at a changed
@@ -172,6 +195,18 @@ RETRIEVAL_RECALL = 0.9
 # centres within 0.81 mm after a sim(3) alignment; GR6P 7.2e-5 rad)
 RIG_REPROJ_PX, RIG_REL_DEG, RIG_REL_M, RIG_CENTRE_M = 0.75, 0.02, 0.002, 0.005
 GR6P_ROT_RAD = 1e-3
+
+# the dense stage's bars (phase 12): the card's sweep of one view against
+# the CPU's on the same inputs, identical depth at DENSE_SAME_DEPTH of the
+# pixels and the cost within DENSE_COST_ATOL where it is; two card runs of the
+# sweep, the splat and the mesh byte-identical; the median point-to-plane
+# distance to the lidar map of the fused points and of the Poisson mesh's
+# vertices under a CPU rehearsal's value x 1.25. The rehearsal (phase 12 on
+# a 14-view pixel world): 21.757 and 325.843 mm. Fusion checks every view
+# against the first four, whose depth ranges end ~46 m down the corridor, so
+# the fused cloud spans about the same length at 14 views and at 100
+DENSE_SAME_DEPTH, DENSE_COST_ATOL = 0.995, 1e-4
+FUSED_P2P_M, MESH_P2P_M = 0.021757 * 1.25, 0.325843 * 1.25
 
 # the pixel world (the JAX package's bench at its light scale) and the
 # accuracy that package recorded on it (BENCH_r05.json)
@@ -1212,6 +1247,7 @@ def run_sfm_tools(args, world: dict, px: dict, tmp: str) -> dict:
             b = imread_rgb(os.path.join(out("undistorted"), "images", img.name)).astype(np.int16)
             diffs.append(int(np.abs(a - b).max()))
     res["undistorted"] = (len(diffs), max(diffs))
+    res["undistorted_workspace"] = out("undistorted")
 
     # spatial matching of the first 30 views on a copy cleaned of matches
     spatial_db = out("spatial.db")
@@ -1701,6 +1737,282 @@ def _require_retrieval_and_rigs(ph: dict, n_images: int):
         raise AssertionError(f"GR6P bank: {ph['gr6p']}")
 
 
+# ---------------------------------------------------------------------------
+# phase 12: dense reconstruction
+
+
+def _dense_workspace(src: str, dst: str, n_views: int):
+    """A dense workspace over phase 10's undistorted images whose model
+    keeps the first n_views registered (the rest deregistered; they can
+    still serve as sources)."""
+    from colmap_pcd_tpu_torch.models.reconstruction import Reconstruction
+
+    os.makedirs(dst)
+    os.symlink(os.path.join(src, "images"), os.path.join(dst, "images"))
+    rec = Reconstruction.read(os.path.join(src, "sparse"))
+    for iid in sorted(rec.registered_ids)[n_views:]:
+        rec.deregister_image(iid)
+    rec.write(os.path.join(dst, "sparse"))
+    return rec
+
+
+def _sweep_inputs(ws: str, rec, ref_id: int) -> tuple:
+    """One view's plane_sweep inputs as run_patch_match_stereo builds them
+    (numpy), with the sources' depth maps from the workspace as the
+    geometric pass's prior."""
+    from colmap_pcd_tpu_torch.models import mvs
+    from colmap_pcd_tpu_torch.utils.image import imread_gray
+
+    opts = mvs.DenseOptions()
+    srcs = mvs._select_sources(rec, ref_id, opts.num_src_images)
+
+    def img(iid):
+        return imread_gray(os.path.join(ws, "images", rec.images[iid].name)).astype(np.float32)
+
+    def depth_map(iid):
+        name = rec.images[iid].name.replace("/", "_")
+        return np.load(os.path.join(ws, "stereo", "depth_maps", name + ".npy"))
+
+    rel = [mvs._relative(rec, ref_id, s) for s in srcs]
+    dmin, dmax = mvs._depth_range(rec, ref_id)
+    depths = (1.0 / np.linspace(1.0 / dmax, 1.0 / dmin, opts.num_depths)).astype(np.float32)
+    K = [mvs._K_of(rec.cameras[rec.images[i].camera_id], 1.0) for i in [ref_id, *srcs]]
+    return (img(ref_id), np.stack([img(s) for s in srcs]), K[0], np.stack(K[1:]),
+            np.stack([r for r, _ in rel]), np.stack([t for _, t in rel]), depths,
+            np.stack([depth_map(s) for s in srcs]))
+
+
+def _sweep_check(ws: str, rec, ref_id: int) -> dict:
+    """plane_sweep of one view, both passes: twice on the card and once on
+    the CPU on the same inputs; CUDA-event times, kernels per pass, peak."""
+    import torch
+
+    from colmap_pcd_tpu_torch import device
+    from colmap_pcd_tpu_torch.ops import stereo
+
+    inputs = _sweep_inputs(ws, rec, ref_id)
+    card = device.resolve("cuda")
+
+    def sweep(dev):
+        t = [torch.as_tensor(a, device=dev) for a in inputs]
+        photo = stereo.plane_sweep(*t[:7])
+        geom = stereo.plane_sweep(*t[:7], src_depths=t[7], use_geom=True)
+        return [a.cpu().numpy() for a in (*photo, *geom)]
+
+    t_in = [torch.as_tensor(a, device=card) for a in inputs]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    on_card = sweep(card)
+    peak = torch.cuda.max_memory_allocated() - base
+    on_card2 = sweep(card)
+    t0 = time.perf_counter()
+    cpu = sweep("cpu")
+    cpu_s = time.perf_counter() - t0
+    res = {"view": ref_id, "sources": inputs[1].shape[0], "cpu_seconds": cpu_s, "peak_bytes": peak,
+           "rerun_identical": all(np.array_equal(a, b) for a, b in zip(on_card, on_card2))}
+    for k, label in ((0, "photometric"), (3, "geometric")):
+        same = on_card[k] == cpu[k]
+        res[label] = {"same_depth": float(same.mean()),
+                      "cost_err": float(np.abs(on_card[k + 1] - cpu[k + 1])[same].max()),
+                      "normal_err": float(np.abs(on_card[k + 2] - cpu[k + 2])[same].max())}
+    res["photo_ms"] = _cuda_ms(lambda: stereo.plane_sweep(*t_in[:7]), 2)
+    res["geom_ms"] = _cuda_ms(lambda: stereo.plane_sweep(*t_in[:7], src_depths=t_in[7], use_geom=True), 2)
+    res["photo_kernels"] = _count_kernels(lambda: stereo.plane_sweep(*t_in[:7]))
+    res["geom_kernels"] = _count_kernels(
+        lambda: stereo.plane_sweep(*t_in[:7], src_depths=t_in[7], use_geom=True))
+    return res
+
+
+def _poisson_twice(points: np.ndarray, normals: np.ndarray) -> dict:
+    """The splat and spectral solve of `poisson_mesh` at depth 7, twice on
+    the card (chi and density byte-identical), timed by CUDA events; then
+    the whole mesh twice (identical vertices and faces)."""
+    import torch
+
+    from colmap_pcd_tpu_torch import device
+    from colmap_pcd_tpu_torch.ops import meshing
+
+    card = device.resolve("cuda")
+    n = 1 << 7
+    nlen = np.linalg.norm(normals, axis=1)
+    keep = nlen > 1e-6
+    pts, nrm = points[keep], normals[keep] / nlen[keep, None]
+    lo, hi = pts.min(axis=0), pts.max(axis=0)
+    span = float((hi - lo).max()) or 1.0
+    p01 = torch.as_tensor(((pts - (lo - 0.125 * span)) / (1.25 * span)).astype(np.float32), device=card)
+    nd = torch.as_tensor(nrm.astype(np.float32), device=card)
+    w = torch.ones(p01.shape[0], device=card)
+    a = meshing._indicator_grid(p01, nd, w, n, 1.5, 1e-3)
+    b = meshing._indicator_grid(p01, nd, w, n, 1.5, 1e-3)
+    ms = _cuda_ms(lambda: meshing._indicator_grid(p01, nd, w, n, 1.5, 1e-3), 2)
+    m1 = meshing.poisson_mesh(points, normals, meshing.PoissonOptions(depth=7), device=card)
+    m2 = meshing.poisson_mesh(points, normals, meshing.PoissonOptions(depth=7), device=card)
+    return {"grid_identical": all(torch.equal(x, y) for x, y in zip(a, b)),
+            "mesh_identical": all(np.array_equal(x, y) for x, y in zip(m1, m2)),
+            "splat_solve_ms": ms, "points": int(p01.shape[0])}
+
+
+def _plane_distances(lmap, q: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """(|(p - m) . n_m|, |p - m|) of each point p against its nearest map
+    point m, through LidarMap.nn_query (K2 on a CUDA map)."""
+    m_pts, m_nrm, dist = lmap.nn_query(q)
+    return np.abs(np.sum((q - m_pts) * m_nrm, axis=1)), dist
+
+
+def _point_to_plane(lmap, pts: np.ndarray) -> tuple[np.ndarray, dict]:
+    """|(p - m) . n_m| of each point p against its nearest map point m (K2
+    through LidarMap.nn_query), and K2 timed at this query count beside the
+    host kd-tree (CUDA events; kd-tree median of 3 by the host clock)."""
+    import torch
+
+    from colmap_pcd_tpu_torch.ops import nn_kernel
+
+    q = np.ascontiguousarray(pts, np.float32)
+    d, dist = _plane_distances(lmap, q)
+    _, host_dist = lmap.host_tree.nn(q)
+    host_rel = float(np.max(np.abs(host_dist - dist) / np.maximum(dist, 1e-6)))
+    if host_rel > DIST_RTOL:
+        raise AssertionError(f"K2 and the host kd-tree disagree at Q={len(q)}: max rel {host_rel:.3g}")
+    q_d = torch.as_tensor(q, device=lmap.device)
+    ms = _cuda_ms(lambda: nn_kernel.nn_argmin(q_d, lmap.d_points4), 3)
+    device_ms = _graph_ms(lambda: nn_kernel.nn_argmin(q_d, lmap.d_points4), 3)
+    host_s = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        lmap.host_tree.nn(q)
+        host_s.append(time.perf_counter() - t0)
+    Q, N = len(q), lmap.num_points
+    bound_ms, bound_by = _bound(12 * Q + 12 * N + 8 * Q, 8.0 * Q * N, F32_FLOPS)
+    return d, {"Q": Q, "N": N, "ms": ms, "device_ms": device_ms, "host_kdtree_ms": float(np.median(host_s)) * 1e3,
+               "bound_ms": bound_ms, "bound_by": bound_by, "max_rel_vs_kdtree": host_rel}
+
+
+def run_dense(args, world: dict, st: dict, tmp: str) -> dict:
+    """Phase 12: the dense commands through cli.main on phase 10's
+    undistorted workspace, each with the launch counts zeroed just before
+    it; automatic_reconstructor --dense 1 on the first 10 views; one view's
+    sweep on the card against the CPU; the splat and mesh twice; the fused
+    cloud and the mesh against the lidar map."""
+    import torch
+
+    from colmap_pcd_tpu_torch.io import ply as ply_io
+    from colmap_pcd_tpu_torch.models import mvs
+    from colmap_pcd_tpu_torch.models.lidar_map import LidarMap
+    from colmap_pcd_tpu_torch.models.reconstruction import Reconstruction
+    from colmap_pcd_tpu_torch.utils.logging_utils import PHASES
+    from synthetic_torch import mapper_argv
+
+    kernels = _kernel_counters()
+    paths = world["paths"]
+    ws = os.path.join(tmp, "ws")
+    rec = _dense_workspace(st["undistorted_workspace"], ws, args.dense_views)
+    res = {"commands": {}, "views_registered": rec.num_reg_images}
+
+    def run(label, argv):
+        _reset_phases()
+        torch.cuda.reset_peak_memory_stats()
+        rc, seconds, launches = _run_cli(argv, kernels)
+        if rc != 0:
+            raise RuntimeError(f"{label} exited with {rc}")
+        res["commands"][label] = {"seconds": seconds, "launches": launches,
+                                  "peak_bytes": torch.cuda.max_memory_allocated(),
+                                  "phases": dict(PHASES.counts)}
+        _log(f"[dense] {label}: {seconds:.3f} s (cli.main), launches {launches}, peak device memory "
+             f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB, host fetches {dict(PHASES.counts)}")
+
+    # the model is in the frame LidarMap.load holds the map in: its sparse
+    # points lie on the map's planes
+    lmap = LidarMap.load(paths["lidar"], device="cuda")
+    sparse = np.stack([p.xyz for p in rec.points3D.values()]).astype(np.float32)
+    to_plane, to_point = _plane_distances(lmap, sparse)
+    res["sparse_to_map_m"] = (float(np.median(to_plane)), float(np.median(to_point)))
+
+    run("patch_match_stereo", ["patch_match_stereo", "--workspace_path", ws])
+    with_source = [i for i in rec.registered_ids if mvs._select_sources(rec, i, 4)]
+    names = [rec.images[i].name.replace("/", "_") + ".npy" for i in with_source]
+    res["maps_missing"] = [n for n in names for kind in ("depth_maps", "normal_maps", "cost_maps")
+                           if not os.path.exists(os.path.join(ws, "stereo", kind, n))]
+    res["views"] = len(with_source)
+    run("stereo_fusion", ["stereo_fusion", "--workspace_path", ws])
+    fused = ply_io.read_ply(os.path.join(ws, "fused.ply"))
+    res["fused_points"] = len(fused.xyz)
+    run("poisson_mesher", ["poisson_mesher", "--input_path", os.path.join(ws, "fused.ply"),
+                           "--output_path", os.path.join(ws, "meshed-poisson.ply"), "--PoissonMeshing.depth", "7"])
+    verts, faces = ply_io.read_ply_mesh(os.path.join(ws, "meshed-poisson.ply"))
+    res["poisson"] = (len(verts), len(faces))
+    run("delaunay_mesher dense", ["delaunay_mesher", "--input_path", ws,
+                                  "--output_path", os.path.join(ws, "meshed-delaunay.ply")])
+    run("delaunay_mesher sparse", ["delaunay_mesher", "--input_path", os.path.join(ws, "sparse"),
+                                   "--output_path", os.path.join(ws, "meshed-delaunay-sparse.ply"),
+                                   "--input_type", "sparse"])
+    meshes = [ply_io.read_ply_mesh(os.path.join(ws, f))
+              for f in ("meshed-delaunay.ply", "meshed-delaunay-sparse.ply")]
+    res["delaunay_faces"] = tuple(len(f) for _, f in meshes)
+    res["delaunay_sparse_vertices"], res["sparse_points"] = len(meshes[1][0]), len(rec.points3D)
+
+    # the one-click pipeline with its dense stage on the first 10 views,
+    # with the lidar mapper's flags
+    imgs = os.path.join(tmp, "auto_images")
+    os.makedirs(imgs)
+    for name in sorted(os.listdir(paths["images"]))[:10]:
+        shutil.copy(os.path.join(paths["images"], name), imgs)
+    cfg = _extraction_config()
+    auto = os.path.join(tmp, "auto")
+    run("automatic_reconstructor --dense 1", [
+        "automatic_reconstructor", "--workspace_path", auto, "--image_path", imgs, "--dense", "1",
+        "--ImageReader.camera_model", "PINHOLE",
+        "--ImageReader.camera_params", f"{PIXEL_F},{PIXEL_F},{PIXEL_W / 2},{PIXEL_H / 2}",
+        "--SiftExtraction.max_num_features", str(cfg.max_num_features),
+        "--SiftExtraction.first_octave", str(cfg.first_octave),
+        "--SiftExtraction.num_octaves", str(cfg.num_octaves),
+        *mapper_argv(paths, "")[3:-2], *PIXEL_MAPPER_FLAGS, "--Mapper.multiple_models", "0",
+    ])
+    res["auto_registered"] = Reconstruction.read(os.path.join(auto, "sparse", "0")).num_reg_images
+    res["auto_faces"] = len(ply_io.read_ply_mesh(os.path.join(auto, "dense", "meshed-poisson.ply"))[1])
+
+    ids = sorted(with_source)
+    res["sweep"] = _sweep_check(ws, rec, ids[len(ids) // 2])
+    res["poisson_twice"] = _poisson_twice(fused.xyz, fused.normals)
+    d_fused, res["k2_fused"] = _point_to_plane(lmap, fused.xyz)
+    d_mesh, _ = _point_to_plane(lmap, verts)
+    res["p2p_fused_m"] = (float(np.median(d_fused)), float(np.percentile(d_fused, 90)))
+    res["p2p_mesh_m"] = (float(np.median(d_mesh)), float(np.percentile(d_mesh, 90)))
+    return res
+
+
+def _require_dense(dn: dict):
+    """Phase 12's bars (PERF.md section 2)."""
+    if not dn["sparse_to_map_m"][0] < 0.05:
+        raise AssertionError(f"dense: the model's points lie {dn['sparse_to_map_m']} m from the map (frame?)")
+    if dn["views"] <= 0 or dn["maps_missing"]:
+        raise AssertionError(f"dense: {dn['views']} views with a source, maps missing {dn['maps_missing'][:5]}")
+    sw = dn["sweep"]
+    for label in ("photometric", "geometric"):
+        c = sw[label]
+        if c["same_depth"] < DENSE_SAME_DEPTH or c["cost_err"] > DENSE_COST_ATOL:
+            raise AssertionError(f"dense: the card's {label} sweep against the CPU's: {c}")
+    if not sw["rerun_identical"]:
+        raise AssertionError("dense: two card runs of the sweep differ")
+    pt = dn["poisson_twice"]
+    if not (pt["grid_identical"] and pt["mesh_identical"]):
+        raise AssertionError(f"dense: two card runs of the splat or the mesh differ: {pt}")
+    if dn["fused_points"] <= 0 or dn["poisson"][1] <= 0:
+        raise AssertionError(f"dense: fused points {dn['fused_points']}, Poisson mesh {dn['poisson']}")
+    if not dn["p2p_fused_m"][0] < FUSED_P2P_M:
+        raise AssertionError(f"dense: fused cloud median point-to-plane {dn['p2p_fused_m'][0]} >= {FUSED_P2P_M} m")
+    if not dn["p2p_mesh_m"][0] < MESH_P2P_M:
+        raise AssertionError(f"dense: mesh median point-to-plane {dn['p2p_mesh_m'][0]} >= {MESH_P2P_M} m")
+    # both meshes have faces, and the sparse one keeps every model point as a
+    # vertex (on a 14-view cut of the corridor both packages' sparse meshers
+    # find no face: ROADMAP queue 3)
+    if min(dn["delaunay_faces"]) <= 0 or dn["delaunay_sparse_vertices"] != dn["sparse_points"]:
+        raise AssertionError(f"dense: Delaunay faces (dense, sparse) {dn['delaunay_faces']}, sparse vertices "
+                             f"{dn['delaunay_sparse_vertices']} of {dn['sparse_points']} model points")
+    if dn["auto_faces"] <= 0:
+        raise AssertionError(f"dense: automatic_reconstructor --dense 1 meshed {dn['auto_faces']} faces")
+
+
 def _require_model(label: str, res: dict, n_images: int):
     """The lidar paths' bars (PERF.md section 2)."""
     if res["registered"] < 0.95 * n_images:
@@ -1721,6 +2033,8 @@ def main(argv=None) -> int:
     ap.add_argument("--classic-images", type=int, default=20)
     ap.add_argument("--rig-snapshots", type=int, default=100, help="depth of the rig world")
     ap.add_argument("--rig-points", type=int, default=20000)
+    ap.add_argument("--dense-views", type=int, default=None,
+                    help="registered views kept in phase 12's workspace (default: all)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after the kernel checks of phases 3 and 4; no result line")
@@ -1929,7 +2243,49 @@ def main(argv=None) -> int:
              f"{g6['seconds']:.3f} s, rotation error {g6['rot_err_rad']:.3g} rad, translation error "
              f"{g6['t_err_m']:.3g} m, inlier share {g6['inlier_share']:.4f}")
 
-    # 12. checks
+        # 12. dense reconstruction on phase 10's undistorted workspace
+        os.makedirs(os.path.join(tmp, "dense"))
+        args.dense_views = args.dense_views or args.n_images
+        dn = run_dense(args, world, st, os.path.join(tmp, "dense"))
+        c = dn["commands"]
+        pms = c["patch_match_stereo"]
+        _log(f"[dense] workspace: {dn['views_registered']} registered views ({dn['views']} with a source); the "
+             f"model's sparse points lie {dn['sparse_to_map_m'][0] * 1e3:.3f} mm (median) from the lidar map's "
+             f"planes as LidarMap.load holds it ({dn['sparse_to_map_m'][1] * 1e3:.3f} mm from its nearest point)")
+        _log(f"[dense] patch_match_stereo (64 depths, 4 sources, r = 3, bilateral, geometric pass): "
+             f"{pms['seconds']:.3f} s for {dn['views']} views, {pms['seconds'] / (2 * dn['views']):.4f} s per "
+             f"view-pass, peak device memory {pms['peak_bytes'] / 2**20:.1f} MiB, "
+             f"{pms['phases'].get('stereo_fetch', 0) / max(dn['views'], 1):.2f} host fetches per view")
+        _log(f"[dense] stereo_fusion: {c['stereo_fusion']['seconds']:.3f} s, {dn['fused_points']} fused points; "
+             f"poisson_mesher (depth 7): {c['poisson_mesher']['seconds']:.3f} s, {dn['poisson'][0]} vertices, "
+             f"{dn['poisson'][1]} faces")
+        _log(f"[dense] delaunay_mesher dense: {c['delaunay_mesher dense']['seconds']:.3f} s, "
+             f"{dn['delaunay_faces'][0]} faces; sparse: {c['delaunay_mesher sparse']['seconds']:.3f} s, "
+             f"{dn['delaunay_faces'][1]} faces")
+        _log(f"[dense] automatic_reconstructor --dense 1 (10 views, lidar mapper): "
+             f"{c['automatic_reconstructor --dense 1']['seconds']:.3f} s, {dn['auto_registered']} registered, "
+             f"{dn['auto_faces']} mesh faces")
+        sw = dn["sweep"]
+        _log(f"[dense] one view's sweep (view {sw['view']}, {sw['sources']} sources): photometric "
+             f"{sw['photo_ms']:.3f} ms, geometric {sw['geom_ms']:.3f} ms (CUDA events, mean of 2), kernels "
+             f"{sw['photo_kernels']} and {sw['geom_kernels']}, peak {sw['peak_bytes'] / 2**20:.1f} MiB above "
+             f"the inputs; against the CPU ({sw['cpu_seconds']:.3f} s there): photometric {sw['photometric']}, "
+             f"geometric {sw['geometric']}; two card runs identical: {sw['rerun_identical']}")
+        pt = dn["poisson_twice"]
+        _log(f"[dense] splat + spectral solve at depth 7 of {pt['points']} points: {pt['splat_solve_ms']:.3f} ms "
+             f"(CUDA events, mean of 2); twice on the card: grid identical {pt['grid_identical']}, mesh "
+             f"identical {pt['mesh_identical']}")
+        k2f = dn["k2_fused"]
+        _log(f"[dense] point-to-plane distance to the lidar map (median, p90): fused cloud "
+             f"{dn['p2p_fused_m'][0] * 1e3:.3f}, {dn['p2p_fused_m'][1] * 1e3:.3f} mm; Poisson mesh vertices "
+             f"{dn['p2p_mesh_m'][0] * 1e3:.3f}, {dn['p2p_mesh_m'][1] * 1e3:.3f} mm")
+        _log(f"[k2] Q={k2f['Q']} N={k2f['N']} (the fused cloud): kernel {k2f['ms']:.4f} ms per call, "
+             f"{k2f['device_ms']:.4f} ms on the device (CUDA graph); bound {k2f['bound_ms']:.4f} ms "
+             f"({k2f['bound_by']}), {100 * k2f['bound_ms'] / k2f['device_ms']:.1f}% reached; host kd-tree "
+             f"{k2f['host_kdtree_ms']:.4f} ms (host clock, median of 3); max rel dist against the kd-tree "
+             f"{k2f['max_rel_vs_kdtree']:.3g}")
+
+    # 13. checks
     u8_launches = {"pixel world": px["matcher_launches"]["match_top2_u8"],
                    "overlapped": ov["launches"]["match_top2_u8"],
                    "descriptor world": res["matcher_launches"]["match_top2_u8"],
@@ -1970,6 +2326,7 @@ def main(argv=None) -> int:
         raise AssertionError(f"classic: median reprojection error {cl['median_reproj_px']} >= 1 px")
     _require_sfm_tools(st, px, args.n_images)
     _require_retrieval_and_rigs(ph, args.n_images)
+    _require_dense(dn)
 
     def entry(name, source, line, launches, rec, **more):
         return {
@@ -1983,6 +2340,10 @@ def main(argv=None) -> int:
     # `launches` is the pixel world's count (the guided matcher's for the
     # float K1, which no other path runs); the other paths' stand beside it
     k2["shapes"][f"Q={st['ba_queries']} N={world['map_points'].shape[0]} (bundle_adjuster)"] = st["k2_ba_shape"]
+    k2f = dn["k2_fused"]
+    k2["shapes"][f"Q={k2f['Q']} N={k2f['N']} (fused cloud, point-to-plane)"] = {
+        **{k: k2f[k] for k in ("ms", "device_ms", "host_kdtree_ms", "bound_ms", "bound_by")},
+        "plain_ms": None, "library_ms": None}
     print(json.dumps({"kernels": [
         entry("nn_argmin", "nn_argmin.cu", 191, k2_launches["pixel world"], k2,
               launches_by_path=k2_launches),

@@ -5,12 +5,14 @@ layout mirrors the JAX package so each module's counterpart is easy to find:
 
   ops/     device compute in PyTorch (SE3, camera models, minimal solvers,
            RANSAC banks, SIFT, depth projection, bundle adjustment with a
-           dense and a PCG camera tier, L1 fitting) and the hand-written
-           CUDA kernels K1 (ops/match_kernel.py + csrc/match_top2*.cu) and
-           K2 (ops/nn_kernel.py + csrc/nn_argmin.cu).
+           dense and a PCG camera tier, L1 fitting, plane-sweep stereo, the
+           spectral Poisson solve) and the hand-written CUDA kernels K1
+           (ops/match_kernel.py + csrc/match_top2*.cu) and K2
+           (ops/nn_kernel.py + csrc/nn_argmin.cu); the Delaunay mesher on
+           the host.
   models/  scene model, matchers, mapper, hierarchical mapper, model tools,
-           undistortion; host modules carried over from the JAX package
-           (which cannot be imported without JAX).
+           undistortion, dense stereo and fusion; host modules carried over
+           from the JAX package (which cannot be imported without JAX).
   io/      PLY, interchange formats (NVM, Bundler, CAM, VRML), HTML viewer.
   utils/   options registry, phase timers, native C++ host runtime bindings.
 

@@ -5,9 +5,8 @@ Port of colmap_pcd_tpu/cli.py. Flags use the reference's namespaced names
 Every command runs on CUDA. `--device cpu`, anywhere on the line, asks for
 the CPU instead (`--device cuda` is the default); `main` strips the flag
 before the command parses its own, and resolves the device first, so a
-command raises when CUDA is absent and the CPU was not asked for. The
-dense commands in `_NOT_PORTED` (ROADMAP.md queue 1 step 10) report that
-they are not yet ported and return 1.
+command raises when CUDA is absent and the CPU was not asked for. All 43
+commands of the JAX CLI are here.
 """
 
 from __future__ import annotations
@@ -18,13 +17,6 @@ import sys
 import numpy as np
 
 from .utils.config import OptionManager
-
-# the rest of the JAX package's command registry, each with the ROADMAP.md
-# queue 1 step that ports it
-_NOT_PORTED = {
-    "patch_match_stereo": 10, "stereo_fusion": 10, "poisson_mesher": 10, "delaunay_mesher": 10,
-}
-
 
 def _opt(argv):
     om = OptionManager()
@@ -510,24 +502,40 @@ def cmd_image_registrator(argv, device):
 
 def cmd_automatic_reconstructor(argv, device):
     """One-click pipeline (AutomaticReconstructionController parity):
-    extract -> exhaustive match -> map. The dense stage (--dense 1) is not
-    ported yet (ROADMAP.md queue 1 step 10)."""
+    extract -> exhaustive match -> map, then with --dense 1 the dense stage
+    (undistort -> stereo -> fusion -> poisson mesh)."""
     p, filtered = _split(argv, "workspace_path", "image_path", "dense")
     workspace, image_path = p["workspace_path"], p["image_path"]
-    if _flag(p["dense"]):
-        print("automatic_reconstructor: the dense stage (undistortion -> stereo -> fusion -> meshing) "
-              "is not yet ported to the PyTorch package; run without --dense 1")
-        return 1
     os.makedirs(workspace, exist_ok=True)
     database_path = os.path.join(workspace, "database.db")
     cmd_feature_extractor(["--database_path", database_path, "--image_path", image_path] + filtered, device)
     cmd_exhaustive_matcher(["--database_path", database_path] + filtered, device)
     os.makedirs(os.path.join(workspace, "sparse"), exist_ok=True)
-    return cmd_mapper(
+    rc = cmd_mapper(
         ["--database_path", database_path, "--image_path", image_path,
          "--output_path", os.path.join(workspace, "sparse")] + filtered,
         device,
     )
+    if rc != 0 or not _flag(p["dense"]):
+        return rc
+    sparse0 = os.path.join(workspace, "sparse", "0")
+    if not os.path.isdir(sparse0):
+        sparse0 = os.path.join(workspace, "sparse")
+    dense_dir = os.path.join(workspace, "dense")
+    rc = cmd_image_undistorter(
+        ["--image_path", image_path, "--input_path", sparse0, "--output_path", dense_dir], device
+    )
+    if rc == 0:
+        rc = cmd_patch_match_stereo(["--workspace_path", dense_dir], device)
+    if rc == 0:
+        rc = cmd_stereo_fusion(["--workspace_path", dense_dir], device)
+    if rc == 0:
+        rc = cmd_poisson_mesher(
+            ["--input_path", os.path.join(dense_dir, "fused.ply"),
+             "--output_path", os.path.join(dense_dir, "meshed-poisson.ply")],
+            device,
+        )
+    return rc
 
 
 # ---------------------------------------------------------------------------
@@ -998,6 +1006,88 @@ def cmd_image_rectifier(argv, device):
 # database and project
 
 
+def cmd_patch_match_stereo(argv, device):
+    """Dense stereo over an undistorted workspace (RunPatchMatchStereo,
+    plane-sweep formulation: ops/stereo.py)."""
+    p, _ = _split(argv, "workspace_path")
+    from .models.mvs import DenseOptions, run_patch_match_stereo
+
+    n = run_patch_match_stereo(p["workspace_path"], DenseOptions(), device=device)
+    print(f"Computed depth/normal maps for {n} views")
+    return 0
+
+
+def cmd_stereo_fusion(argv, device):
+    p, _ = _split(argv, "workspace_path", "output_path")
+    from .models.mvs import DenseOptions, run_stereo_fusion
+
+    pts, _, _ = run_stereo_fusion(p["workspace_path"], p["output_path"], DenseOptions(), device=device)
+    print(f"Fused {len(pts)} points")
+    return 0
+
+
+def cmd_poisson_mesher(argv, device):
+    """Fused oriented point cloud -> surface mesh (RunPoissonMesher,
+    src/exe/colmap.cc; mvs/meshing.h:106-125): spectral Poisson solve on the
+    device + marching tetrahedra (ops/meshing.py)."""
+    p, _ = _split(argv, "input_path", "output_path", "PoissonMeshing.depth", "PoissonMeshing.trim",
+                  "PoissonMeshing.point_weight")
+    input_path, output_path = p["input_path"], p["output_path"]
+    if not input_path or not output_path:
+        print("usage: poisson_mesher --input_path fused.ply --output_path meshed.ply")
+        return 1
+    from .io import ply as ply_io
+    from .ops.meshing import PoissonOptions, poisson_mesh
+
+    opts = PoissonOptions(
+        depth=int(p["PoissonMeshing.depth"] or 7),
+        trim=float(p["PoissonMeshing.trim"] or 7.0),
+        point_weight=float(p["PoissonMeshing.point_weight"] or 1.0),
+    )
+    data = ply_io.read_ply(input_path)
+    if data.normals is None:
+        print(f"{input_path} has no normals; run stereo_fusion first")
+        return 1
+    verts, faces = poisson_mesh(data.xyz, data.normals, opts, device=device)
+    ply_io.write_ply_mesh(output_path, verts, faces)
+    print(f"Meshed {len(data.xyz)} points -> {len(verts)} vertices, {len(faces)} faces: {output_path}")
+    return 0
+
+
+def cmd_delaunay_mesher(argv, device):
+    """Sparse/dense Delaunay meshing with visibility graph cut
+    (RunDelaunayMesher; mvs/meshing.h:110-127, Labatut et al. 2009), host
+    code. --input_path: a sparse model dir (sparse mode) or a dense workspace
+    containing fused.ply + sparse/ (dense mode, the reference's default)."""
+    p, _ = _split(argv, "input_path", "output_path", "input_type",
+                  "DelaunayMeshing.quality_regularization", "DelaunayMeshing.visibility_sigma")
+    input_path, output_path, input_type = p["input_path"], p["output_path"], p["input_type"] or "dense"
+    if not input_path or not output_path:
+        print("usage: delaunay_mesher --input_path <sparse_model|dense_workspace>"
+              " --output_path meshed.ply [--input_type sparse|dense]")
+        return 1
+    from .io import ply as ply_io
+    from .models.reconstruction import Reconstruction
+    from .ops.delaunay import DelaunayMeshingOptions, dense_delaunay_mesh, sparse_delaunay_mesh
+
+    opts = DelaunayMeshingOptions(
+        quality_regularization=float(p["DelaunayMeshing.quality_regularization"] or 1.0),
+        visibility_sigma=float(p["DelaunayMeshing.visibility_sigma"] or 3.0),
+    )
+    if input_type == "sparse":
+        verts, faces = sparse_delaunay_mesh(Reconstruction.read(input_path), opts)
+    else:
+        fused = os.path.join(input_path, "fused.ply")
+        if not os.path.exists(fused):
+            print(f"{fused} not found; run stereo_fusion first")
+            return 1
+        rec = Reconstruction.read(os.path.join(input_path, "sparse"))
+        verts, faces = dense_delaunay_mesh(ply_io.read_ply(fused).xyz, rec, opts)
+    ply_io.write_ply_mesh(output_path, verts, faces)
+    print(f"Delaunay meshed -> {len(verts)} vertices, {len(faces)} faces: {output_path}")
+    return 0
+
+
 def cmd_database_creator(argv, device):
     om, _ = _opt(argv)
     from .models.database import Database
@@ -1120,6 +1210,10 @@ COMMANDS = {
     "image_undistorter": cmd_image_undistorter,
     "image_undistorter_standalone": cmd_image_undistorter_standalone,
     "image_rectifier": cmd_image_rectifier,
+    "patch_match_stereo": cmd_patch_match_stereo,
+    "stereo_fusion": cmd_stereo_fusion,
+    "poisson_mesher": cmd_poisson_mesher,
+    "delaunay_mesher": cmd_delaunay_mesher,
     "database_creator": cmd_database_creator,
     "database_cleaner": cmd_database_cleaner,
     "database_merger": cmd_database_merger,
@@ -1144,10 +1238,6 @@ def main(argv=None):
         print("commands:", ", ".join(sorted(COMMANDS)))
         return 0
     cmd = argv[0]
-    if cmd in _NOT_PORTED:
-        print(f"{cmd}: not yet ported to the PyTorch package (ROADMAP.md queue 1 step "
-              f"{_NOT_PORTED[cmd]}); use `python -m colmap_pcd_tpu {cmd}`")
-        return 1
     if cmd not in COMMANDS:
         print(f"unknown command {cmd}; available:", ", ".join(sorted(COMMANDS)))
         return 1

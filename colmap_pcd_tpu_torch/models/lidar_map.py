@@ -12,6 +12,8 @@ device ops in ops/pointcloud.py and the 1-NN kernel in ops/nn_kernel.py.
   * project_to_image(s): depth-associate features with the full map.
   * nn_query: exact 1-NN, on the GPU through the hand-written kernel or on
     the host through the native C++ kd-tree.
+  * frustum_candidates (the cells inside a view's pyramid) and
+    voxel_downsample (centroids per voxel), host numpy as in the JAX package.
 """
 
 from __future__ import annotations
@@ -116,6 +118,60 @@ class LidarMap:
         return self.points.shape[0]
 
     # ------------------------------------------------------------------
+    def frustum_candidates(
+        self, q, t, params, model_id: int, width: int, height: int, budget: int | None = None
+    ):
+        """Candidate point range for a view: the 5-plane cell test and the CSR
+        compaction on the host (numpy, as in the JAX package), padded to a
+        budget.
+
+        Returns (cand_idx [B] int64, valid [B] f32) where B is the padded budget.
+        """
+        from ..ops import np_geom
+
+        pp = np.asarray(params)
+        fi, fj, ci, cj = cm._FOCAL_IDX[model_id]
+        planes = np_geom.frustum_planes(
+            np.asarray(q, np.float64), np.asarray(t, np.float64),
+            pp[fi], pp[fj], pp[ci], pp[cj], width, height, self.opts.choose_meter,
+        )
+        # cell centers inside the frustum, with one-cell dilation via a radius
+        # slack on the plane test (covers the reference's +-1-cell sweep)
+        slack = self.cell_size * np.sqrt(3.0) * 0.5
+        centers = self.cell_keys.astype(np.float64) * self.cell_size
+        vals = centers @ planes[:, :3].T + planes[None, :, 3]
+        mask = np.all(vals <= slack, axis=-1)
+        sel = np.nonzero(mask)[0]
+        if sel.size == 0:
+            idx = np.zeros(0, np.int64)
+        else:
+            counts = self.cell_count[sel]
+            total = int(counts.sum())
+            # vectorized CSR expansion (no Python loop over cells)
+            base = np.repeat(self.cell_start[sel], counts)
+            within = np.arange(total, dtype=np.int64) - np.repeat(
+                np.cumsum(counts) - counts, counts
+            )
+            idx = base + within
+        n = idx.size
+        if budget is None:
+            # a power-of-two bucket (min 32k), the JAX package's default
+            budget = max(32768, 1 << int(np.ceil(np.log2(max(n, 1)))))
+        if n > budget:
+            import logging
+
+            logging.getLogger(__name__).warning(
+                "frustum candidate set (%d) exceeds budget (%d); truncating", n, budget
+            )
+            idx = idx[:budget]
+            n = budget
+        valid = np.zeros(budget, np.float32)
+        valid[:n] = 1.0
+        pad = np.zeros(budget, np.int64)
+        pad[:n] = idx
+        return pad, valid
+
+    # ------------------------------------------------------------------
     def project_to_images(
         self,
         feat_xy: np.ndarray,  # [B,F,2] full-res pixels (zero-padded rows ok)
@@ -212,3 +268,18 @@ class LidarMap:
             idx_t, dist_t = nn_kernel.nn_argmin(q, self.d_points4)
             idx, dist = idx_t.cpu().numpy(), dist_t.cpu().numpy()
         return self.points[idx], self.normals[idx], dist
+
+    # ------------------------------------------------------------------
+    def voxel_downsample(self, voxel: float) -> tuple[np.ndarray, np.ndarray]:
+        """Centroid voxel filter for display/export (LoadDownsizedMap parity)."""
+        keys = np.floor(self.points / voxel).astype(np.int64)
+        uniq, inv = np.unique(keys, axis=0, return_inverse=True)
+        inv = inv.reshape(-1)
+        n = uniq.shape[0]
+        sums = np.zeros((n, 3), np.float64)
+        nrms = np.zeros((n, 3), np.float64)
+        cnt = np.zeros((n, 1), np.int64)
+        np.add.at(sums, inv, self.points)
+        np.add.at(nrms, inv, self.normals)
+        np.add.at(cnt, inv, 1)
+        return (sums / cnt).astype(np.float32), (nrms / cnt).astype(np.float32)

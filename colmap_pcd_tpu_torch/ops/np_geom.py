@@ -315,6 +315,45 @@ def classify_ground(normals, ratio: float = 10.0):
     return (ny > ratio * nx) & (ny > ratio * nz)
 
 
+def frustum_planes(q, t, fx, fy, cx, cy, width, height, choose_meter):
+    """Numpy twin of pointcloud.frustum_planes (host-side culling setup)."""
+    qi = quat_conj(q)
+    center = projection_center(q, t)
+    x_min = -cx / fx
+    x_max = (width - cx) / fx
+    y_min = -cy / fy
+    y_max = (height - cy) / fy
+    D = choose_meter
+    corners_cam = np.asarray(
+        [
+            [x_max * D, y_max * D, D],
+            [x_max * D, y_min * D, D],
+            [x_min * D, y_min * D, D],
+            [x_min * D, y_max * D, D],
+        ]
+    )
+    corners = quat_rotate(qi[None, :], corners_cam) + center[None, :]
+    centroid = (center + np.sum(corners, axis=0)) / 5.0
+
+    def oriented(p0, p1, p2):
+        n = np.cross(p1 - p0, p2 - p0)
+        n = n / max(np.linalg.norm(n), 1e-12)
+        d = -np.dot(n, p0)
+        flip = -1.0 if np.dot(n, centroid) + d > 0 else 1.0
+        return np.concatenate([n * flip, [d * flip]])
+
+    c1, c2, c3, c4 = corners
+    return np.stack(
+        [
+            oriented(c1, c2, c3),
+            oriented(center, c1, c2),
+            oriented(center, c2, c3),
+            oriented(center, c3, c4),
+            oriented(center, c4, c1),
+        ]
+    )
+
+
 def pad_params(params, model_id: int):
     """Numpy twin of camera_models.pad_params."""
     p = np.asarray(params, np.float32)

@@ -1,7 +1,8 @@
 """Device ops on the LiDAR map: depth projection, ray-plane seeding, 1-NN.
 
-Port of colmap_pcd_tpu/ops/pointcloud.py (`depth_project` :134,
-`depth_project_shared` :235, `nn_query` :260, `ray_plane_points` :305). The
+Port of colmap_pcd_tpu/ops/pointcloud.py (`frustum_planes` :56,
+`points_in_frustum` :105, `depth_project` :134, `depth_project_shared`
+:235, `nn_query` :260, `ray_plane_points` :305). The
 reference splats points into a z-buffered depth image behind mutexes
 (src/lidar/pcd_projection.cc:315-462); here every (feature, candidate point)
 pair is tested for splat coverage and the nearest covering point per
@@ -42,6 +43,59 @@ class ProjOptions(NamedTuple):
     choose_meter: float = 40.0
     min_lidar_proj_dist: float = 0.5
     submap_cell: float = 1.0  # submap_length/width/height (cubical cells)
+
+
+def frustum_planes(q: Tensor, t: Tensor, fx, fy, cx, cy, width, height, choose_meter) -> Tensor:
+    """The 5 planes of the view pyramid (camera apex + 4 corners at depth D).
+
+    Returns planes [5,4] with inward side satisfying a.x+b.y+c.z+d <= 0,
+    matching SearchSubMap/SearchImageMap (pcd_projection.cc:258-297,499-559).
+    (fx..cy, width, height are at full resolution; the frustum is
+    scale-invariant.)
+    """
+    qi = se3.quat_conj(q)
+    center = se3.projection_center(q, t)  # apex
+    x_min = -cx / fx
+    x_max = (width - cx) / fx
+    y_min = -cy / fy
+    y_max = (height - cy) / fy
+    D = choose_meter
+    corners_cam = torch.tensor(
+        [
+            [x_max * D, y_max * D, D],
+            [x_max * D, y_min * D, D],
+            [x_min * D, y_min * D, D],
+            [x_min * D, y_max * D, D],
+        ],
+        dtype=q.dtype, device=q.device,
+    )
+    corners = se3.quat_rotate(qi[None, :], corners_cam) + center[None, :]
+    # orient each plane so that the frustum centroid is on the inside (<= 0)
+    centroid = (center + torch.sum(corners, dim=0)) / 5.0
+
+    def oriented(p0, p1, p2):
+        n = torch.linalg.cross(p1 - p0, p2 - p0)
+        n = n / torch.clamp(torch.linalg.norm(n), min=1e-12)
+        d = -torch.dot(n, p0)
+        flip = torch.where(torch.dot(n, centroid) + d > 0, -1.0, 1.0)
+        return torch.cat([n * flip, (d * flip)[None]])
+
+    c1, c2, c3, c4 = corners[0], corners[1], corners[2], corners[3]
+    return torch.stack(
+        [
+            oriented(c1, c2, c3),  # far plane through the 4 corners
+            oriented(center, c1, c2),
+            oriented(center, c2, c3),
+            oriented(center, c3, c4),
+            oriented(center, c4, c1),
+        ]
+    )
+
+
+def points_in_frustum(planes: Tensor, pts: Tensor) -> Tensor:
+    """Boolean mask of pts [M,3] inside all 5 half-spaces."""
+    vals = pts @ planes[:, :3].T + planes[None, :, 3]  # [M,5]
+    return torch.all(vals <= 0.0, dim=-1)
 
 
 def splat_scales(dist: Tensor, fx, fy, opts: ProjOptions):

@@ -116,6 +116,20 @@ def proj_matrix(q: Tensor, t: Tensor) -> Tensor:
     return torch.cat([se3.quat_to_rotmat(q), t[..., :, None]], dim=-1)
 
 
+def triangulate_multiview(qs: Tensor, ts: Tensor, uvs: Tensor, mask: Tensor) -> Tensor:
+    """N-view DLT: qs [..., T, 4], ts [..., T, 3], uvs [..., T, 2] normalized
+    camera coords, mask [..., T]. Rows of invalid views are zeroed (they do
+    not constrain)."""
+    P = proj_matrix(qs, ts)  # [..., T, 3, 4]
+    r1 = uvs[..., 0, None] * P[..., 2, :] - P[..., 0, :]
+    r2 = uvs[..., 1, None] * P[..., 2, :] - P[..., 1, :]
+    A = torch.cat([r1, r2], dim=-2) * torch.cat([mask, mask], dim=-1)[..., None]
+    X = nullspace_vecs(A, 1)[..., 0, :]
+    w = X[..., 3]
+    w = torch.where(torch.abs(w) < 1e-12, torch.full_like(w, 1e-12), w)
+    return X[..., :3] / w[..., None]
+
+
 def triangulation_angle(center1: Tensor, center2: Tensor, X: Tensor) -> Tensor:
     """Angle at X subtended by the two camera centers (radians)."""
     v1 = center1 - X
@@ -124,6 +138,37 @@ def triangulation_angle(center1: Tensor, center2: Tensor, X: Tensor) -> Tensor:
         torch.linalg.norm(v1, dim=-1) * torch.linalg.norm(v2, dim=-1), min=1e-12
     )
     return torch.arccos(torch.clamp(c, -1.0, 1.0))
+
+
+def p6p_dlt(uv: Tensor, X: Tensor) -> tuple[Tensor, Tensor]:
+    """Direct linear P6P for calibrated cameras.
+
+    uv [..., n, 2] normalized camera coords (x/z, y/z); X [..., n, 3] world
+    points, n >= 6. Returns (q, t) with R projected to SO(3) by Procrustes
+    and the sign fixed by det(R) > 0 (a hypothesis with most depths negative
+    is left for RANSAC to score out).
+    """
+    Xh = torch.cat([X, torch.ones_like(X[..., :1])], dim=-1)  # [..., n, 4]
+    z = torch.zeros_like(Xh)
+    r1 = torch.cat([Xh, z, -uv[..., 0:1] * Xh], dim=-1)  # [..., n, 12]
+    r2 = torch.cat([z, Xh, -uv[..., 1:2] * Xh], dim=-1)
+    A = torch.cat([r1, r2], dim=-2)
+    P = nullspace_vecs(A, 1)[..., 0, :].reshape(*A.shape[:-2], 3, 4)
+    M = P[..., :3]
+    # scale & sign: det(R) > 0
+    s = torch.sign(det3(M))
+    s = torch.where(s == 0, torch.ones_like(s), s)
+    M = M * s[..., None, None]
+    tt = P[..., 3] * s[..., None]
+    scale = torch.exp(torch.log(torch.clamp(torch.abs(det3(M)), min=1e-30)) / 3.0)
+    M = M / scale[..., None, None]
+    tt = tt / scale[..., None]
+    U, _, Vt = _svd(M)
+    d = torch.sign(det3(U @ Vt))
+    d = torch.where(d == 0, torch.ones_like(d), d)
+    D = torch.diag_embed(torch.stack([torch.ones_like(d), torch.ones_like(d), d], dim=-1))
+    R = U @ D @ Vt
+    return se3.rotmat_to_quat(R), tt
 
 
 def p3p(uv: Tensor, X: Tensor) -> tuple[Tensor, Tensor, Tensor]:

@@ -50,8 +50,15 @@ def test_cli_mapper_lidar_world(tmp_path):
 
 
 def test_cli_reports_unported_commands(capsys):
-    assert cli.main(["patch_match_stereo", "--workspace_path", "x"]) == 1
-    assert "not yet ported" in capsys.readouterr().out
+    """Every command of the JAX CLI is ported (the dense four since step
+    10), so none answers "not yet ported"; a name neither CLI has is
+    reported as unknown."""
+    from colmap_pcd_tpu import cli as cli_j
+
+    assert sorted(cli.COMMANDS) == sorted(cli_j.COMMANDS)
+    assert cli.main(["frobnicate", "--workspace_path", "x"]) == 1
+    out = capsys.readouterr().out
+    assert "unknown command" in out and "not yet ported" not in out
     assert cli.main(["--help"]) == 0
 
 

@@ -21,7 +21,7 @@ import synthetic_torch
 from colmap_pcd_tpu_torch import cli
 from colmap_pcd_tpu_torch.io import ply as ply_io
 from colmap_pcd_tpu_torch.models.database import Database
-from colmap_pcd_tpu_torch.models.reconstruction import Camera, Image, LidarAssoc, Reconstruction
+from colmap_pcd_tpu_torch.models.reconstruction import Camera, Image, LidarAssoc, Point3D, Reconstruction
 from colmap_pcd_tpu_torch.ops import np_geom
 
 from test_sift import make_texture
@@ -39,13 +39,13 @@ def run(*argv) -> int:
 def test_cli_help_lists_the_ported_commands(capsys):
     assert cli.main([]) == 0
     listed = capsys.readouterr().out.split("commands:")[1].strip().split(", ")
-    assert len(listed) == 39 and "bundle_adjuster" in listed and "hierarchical_mapper" in listed
-    for cmd in ("vocab_tree_matcher", "vocab_tree_builder", "vocab_tree_retriever", "rig_bundle_adjuster"):
+    assert len(listed) == 43 and "bundle_adjuster" in listed and "hierarchical_mapper" in listed
+    for cmd in ("vocab_tree_matcher", "vocab_tree_builder", "vocab_tree_retriever", "rig_bundle_adjuster",
+                "patch_match_stereo", "stereo_fusion", "poisson_mesher", "delaunay_mesher"):
         assert cmd in listed
-    for cmd in ("patch_match_stereo", "stereo_fusion", "poisson_mesher", "delaunay_mesher"):
-        assert cmd not in listed
-        assert cli.main([cmd, "--database_path", "x.db"]) == 1
-        assert "not yet ported" in capsys.readouterr().out
+    for cmd in ("poisson_mesher", "delaunay_mesher"):  # without their paths: the usage line
+        assert run(cmd) == 1
+        assert "usage" in capsys.readouterr().out
     assert cli.main(["frobnicate"]) == 1
 
 
@@ -417,10 +417,10 @@ def test_cli_model_converter_formats(tmp_path):
 
 
 # --------------------------------------- the commands of the model tools
-def test_cli_model_tools_commands(tmp_path, capsys):
+def test_cli_model_tools_commands(tmp_path, capsys, dense_run):
     """model_merger, model_cropper, model_splitter, model_comparer,
     model_orientation_aligner, database_creator/cleaner/merger, gui and
-    automatic_reconstructor's dense refusal."""
+    the mesh of automatic_reconstructor --dense 1 (run by `dense_run`)."""
     rec, d = _toy_model(tmp_path, np.random.default_rng(1))
     out = tmp_path / "o"
     assert run("model_merger", "--input_path1", d, "--input_path2", d, "--output_path", str(out / "merged")) == 0
@@ -464,9 +464,8 @@ def test_cli_model_tools_commands(tmp_path, capsys):
     capsys.readouterr()
     assert run("gui") == 0
     assert "PyTorch package" in capsys.readouterr().out
-    assert run("automatic_reconstructor", "--workspace_path", str(tmp_path / "ws"), "--image_path", d,
-               "--dense", "1") == 1
-    assert "dense stage" in capsys.readouterr().out and not os.path.exists(tmp_path / "ws")
+    verts, faces = ply_io.read_ply_mesh(os.path.join(dense_run["auto"], "dense", "meshed-poisson.ply"))
+    assert len(verts) > 100 and len(faces) > 100
 
 
 # ------------------------------------- the new commands without JAX
@@ -519,3 +518,115 @@ def test_sfm_commands_never_import_jax(tmp_path):
     assert Reconstruction.read(out + "/aligned").num_reg_images >= 5
     assert len(os.listdir(out + "/dense/images")) >= 5
     assert Reconstruction.read(out + "/hier/0").num_reg_images >= 4
+
+
+# ------------------------------------------- the dense commands without JAX
+def _analytic_workspace(root) -> str:
+    """tests/test_stereo.py's 4-view plane scene as files: 160x120 PNGs and
+    a sparse model with a few plane points seen by every view."""
+    from test_stereo import F as f, H as h, W as w, render_plane
+
+    ws = root / "plane"
+    (ws / "images").mkdir(parents=True)
+    rec = Reconstruction()
+    rec.add_camera(Camera(1, 1, w, h, np.asarray([f, f, w / 2, h / 2])))
+    centers = [np.zeros(3), np.asarray([0.35, 0.0, 0.0]), np.asarray([0.0, 0.3, 0.0]), np.asarray([0.3, 0.3, 0.0])]
+    for i, c in enumerate(centers, 1):
+        rec.add_image(Image(i, f"v{i}.png", 1, xys=np.zeros((8, 2)), qvec=np.asarray([1.0, 0, 0, 0]), tvec=-c))
+        rec.register_image(i)
+        PILImage.fromarray((render_plane(c, 10.0) * 255).astype(np.uint8)).save(ws / "images" / f"v{i}.png")
+    for k in range(6):
+        rec.add_point3D(np.asarray([(k % 3 - 1) * 2.0, (k // 3 - 0.5) * 1.5, 10.0]), [(i, k) for i in range(1, 5)])
+    rec.write(str(ws / "sparse"))
+    return str(ws)
+
+
+def _ring_workspace(root) -> str:
+    """tests/test_meshing.py's Delaunay scene as a dense workspace: a sparse
+    model of 8 cameras on a ring of radius 5 around 220 unit-sphere points
+    (each seen by the 3 nearest), and fused.ply of 600 other sphere points."""
+    rng = np.random.default_rng(0)
+    rec = Reconstruction()
+    rec.add_camera(Camera(1, 1, 640, 480, np.asarray([500.0, 500, 320, 240])))
+    centers = {}
+    for i in range(1, 9):
+        a = 2 * np.pi * i / 8
+        centers[i] = np.asarray([5 * np.cos(a), 0.2, 5 * np.sin(a)])
+        rec.add_image(Image(i, f"v{i}.png", 1, xys=np.zeros((0, 2)), qvec=np.asarray([1.0, 0, 0, 0]),
+                            tvec=-centers[i]))
+        rec.register_image(i)
+    u = rng.normal(size=(820, 3))
+    u /= np.linalg.norm(u, axis=1, keepdims=True)
+    for k in range(220):
+        near = sorted(centers, key=lambda i: np.linalg.norm(centers[i] - u[k]))[:3]
+        rec.points3D[k + 1] = Point3D(xyz=u[k], track=[(i, 0) for i in near])
+    ws = root / "ring"
+    rec.write(str(ws / "sparse"))
+    ply_io.write_ply(str(ws / "fused.ply"), u[220:].astype(np.float32), u[220:].astype(np.float32))
+    return str(ws)
+
+
+@pytest.fixture(scope="module")
+def dense_run(tmp_path_factory):
+    """In a fresh interpreter where `import jax` fails: automatic_reconstructor
+    --dense 1 on four 320x240 views of the rendered corridor with the lidar
+    mapper's flags (extraction, matching, mapping, then undistortion,
+    stereo, fusion and the Poisson mesh), then the four dense commands by
+    name: patch_match_stereo and stereo_fusion on the analytic 4-view
+    workspace, poisson_mesher with its three flags on that cloud, and
+    delaunay_mesher in dense and sparse mode with its two on the ring
+    workspace."""
+    root = tmp_path_factory.mktemp("dense_cli")
+    n, w, h, f = 4, 320, 240, 250.0
+    gt = synthetic_torch.make_trajectory(n)
+    (root / "imgs").mkdir()
+    synthetic_torch.render_images(str(root / "imgs"), gt, w, h, f)
+    pts, nrm = synthetic_torch.build_corridor_map(np.random.default_rng(0), length=n * 0.8 + 25)
+    paths = synthetic_torch.write_lidar_files(pts, nrm, gt, str(root))
+    auto, plane, ring = str(root / "auto"), _analytic_workspace(root), _ring_workspace(root)
+    mapper = synthetic_torch.mapper_argv(dict(paths, database=""), "")[3:-2]  # the lidar and prior flags
+    cpu = ["--device", "cpu"]
+    runs = [
+        ["automatic_reconstructor", "--workspace_path", auto, "--image_path", str(root / "imgs"), "--dense", "1",
+         "--ImageReader.camera_model", "PINHOLE", "--ImageReader.camera_params", f"{f},{f},{w / 2},{h / 2}",
+         "--SiftExtraction.max_num_features", "1024", "--SiftExtraction.first_octave", "0",
+         "--SiftExtraction.num_octaves", "3", "--Mapper.init_min_num_inliers", "40",
+         "--Mapper.abs_pose_min_num_inliers", "12", "--Mapper.abs_pose_min_inlier_ratio", "0.15",
+         "--Mapper.filter_max_reproj_error", "6.0", "--Mapper.multiple_models", "0", *mapper, *cpu],
+        ["patch_match_stereo", "--workspace_path", plane, *cpu],
+        ["stereo_fusion", "--workspace_path", plane, "--output_path", plane + "/fused.ply", *cpu],
+        ["poisson_mesher", "--input_path", plane + "/fused.ply", "--output_path", plane + "/poisson.ply",
+         "--PoissonMeshing.depth", "6", "--PoissonMeshing.trim", "5", "--PoissonMeshing.point_weight", "2", *cpu],
+        ["delaunay_mesher", "--input_path", ring, "--output_path", ring + "/delaunay-dense.ply",
+         "--DelaunayMeshing.quality_regularization", "0.5", "--DelaunayMeshing.visibility_sigma", "2", *cpu],
+        ["delaunay_mesher", "--input_path", ring + "/sparse", "--output_path", ring + "/delaunay-sparse.ply",
+         "--input_type", "sparse", *cpu],
+    ]
+    code = (
+        "import sys; sys.modules['jax'] = None\n"
+        "import torch; torch.set_num_threads(1)\n"
+        "from colmap_pcd_tpu_torch import cli\n"
+        f"for argv in {runs!r}:\n"
+        "    assert cli.main(argv) == 0, argv[0]\n"
+        "assert not any(m == 'jax' or m.startswith(('jax.', 'colmap_pcd_tpu.'))"
+        " for m in sys.modules if sys.modules[m] is not None), 'jax imported'\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=str(root),
+                          env=dict(os.environ, PYTHONPATH=str(REPO)),
+                          capture_output=True, text=True, timeout=900)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    return {"auto": auto, "plane": plane, "ring": ring, "stdout": proc.stdout}
+
+
+def test_dense_commands_never_import_jax(dense_run):
+    auto, plane, ring, out = dense_run["auto"], dense_run["plane"], dense_run["ring"], dense_run["stdout"]
+    assert Reconstruction.read(os.path.join(auto, "sparse", "0")).num_reg_images >= 3
+    assert "Computed depth/normal maps for 4 views" in out
+    for view in range(1, 5):
+        for kind in ("depth_maps", "normal_maps", "cost_maps"):
+            assert os.path.exists(os.path.join(plane, "stereo", kind, f"v{view}.png.npy"))
+    fused = ply_io.read_ply(os.path.join(plane, "fused.ply"))
+    assert len(fused.xyz) > 3000 and np.median(np.abs(fused.xyz[:, 2] - 10.0)) < 0.2
+    for mesh in (plane + "/poisson.ply", ring + "/delaunay-dense.ply", ring + "/delaunay-sparse.ply"):
+        verts, faces = ply_io.read_ply_mesh(mesh)
+        assert len(faces) > 0, mesh

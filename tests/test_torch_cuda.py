@@ -274,3 +274,67 @@ def test_sift_on_gpu_matches_cpu_and_repeats(cuda_device, variant):
     d, d_cpu = on_card[1].cpu()[on_cpu[3]], on_cpu[1][on_cpu[3]]
     cos = torch.nn.functional.cosine_similarity(d, d_cpu, dim=-1)
     assert float((cos >= 0.995).float().mean()) >= 0.97
+
+
+def _sweep_inputs(rng, H=240, W=320, S=4, D=64):
+    """A textured fronto-parallel plane at 8 m seen by a reference and S
+    shifted sources, with a prior depth map per source."""
+    ys, xs = np.mgrid[0:H, 0:W].astype(np.float32)
+    f = 250.0
+    K = np.asarray([[f, 0, W / 2], [0, f, H / 2], [0, 0, 1]], np.float32)
+    freq = rng.uniform(0.5, 4.0, (6, 2))
+
+    def view(cx, cy):
+        wx, wy = cx + (xs - W / 2) / f * 8.0, cy + (ys - H / 2) / f * 8.0
+        return sum(np.sin(a * wx + 0.7 * k) * np.cos(b * wy) for k, (a, b) in enumerate(freq)).astype(np.float32) / 12 + 0.5
+
+    c = rng.normal(0, 0.3, (S, 2))
+    srcs = np.stack([view(x, y) for x, y in c])
+    t = np.concatenate([-c, np.zeros((S, 1))], 1).astype(np.float32)
+    depths = (1.0 / np.linspace(1 / 16.0, 1 / 4.0, D)).astype(np.float32)
+    prior = (8.0 + rng.normal(0, 0.05, (S, H, W))).astype(np.float32)
+    return (view(0.0, 0.0), srcs, K, np.stack([K] * S), np.stack([np.eye(3, dtype=np.float32)] * S), t, depths,
+            prior)
+
+
+def test_plane_sweep_on_gpu_equals_cpu_and_repeats(cuda_device):
+    """Both passes of the sweep: the card computes the CPU's floats (the
+    same IEEE operations in the same order), and twice the same bytes."""
+    from colmap_pcd_tpu_torch.ops import stereo
+
+    inputs = _sweep_inputs(np.random.default_rng(0))
+
+    def run(dev):
+        t = [torch.as_tensor(a, device=dev) for a in inputs]
+        return [a.cpu().numpy() for a in (*stereo.plane_sweep(*t[:7]),
+                                          *stereo.plane_sweep(*t[:7], src_depths=t[7], use_geom=True))]
+
+    card, card2, cpu = run(cuda_device), run(cuda_device), run("cpu")
+    for a, b in zip(card, card2):
+        np.testing.assert_array_equal(a, b)
+    for k in (0, 3):
+        same = card[k] == cpu[k]
+        assert same.mean() >= 0.995, same.mean()
+        assert np.abs(card[k + 1] - cpu[k + 1])[same].max() <= 1e-4
+
+
+def test_poisson_on_gpu_repeats_and_matches_cpu(cuda_device):
+    """The fixed-point splat gives the same bytes on every run despite the
+    atomics; the mesh matches the CPU's by face count and vertex distance."""
+    from colmap_pcd_tpu_torch.ops import meshing
+
+    rng = np.random.default_rng(1)
+    v = rng.normal(size=(200_000, 3))
+    v /= np.linalg.norm(v, axis=1, keepdims=True)
+    pts, nrm = v.astype(np.float32), v.astype(np.float32)
+    p01 = torch.as_tensor((pts + 1.25) / 2.5, device=cuda_device)
+    w = torch.ones(len(pts), device=cuda_device)
+    a = meshing._indicator_grid(p01, torch.as_tensor(nrm, device=cuda_device), w, 128, 1.5, 1e-3)
+    b = meshing._indicator_grid(p01, torch.as_tensor(nrm, device=cuda_device), w, 128, 1.5, 1e-3)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    vg, fg = meshing.poisson_mesh(pts, nrm, meshing.PoissonOptions(depth=7), device=cuda_device)
+    vc, fc = meshing.poisson_mesh(pts, nrm, meshing.PoissonOptions(depth=7), device="cpu")
+    assert abs(len(fg) - len(fc)) <= 0.01 * len(fc)
+    from scipy.spatial import cKDTree
+
+    assert cKDTree(vc).query(vg)[0].max() < 1e-3

@@ -20,6 +20,8 @@ from colmap_pcd_tpu_torch.ops import ransac as ransac_t
 from colmap_pcd_tpu_torch.ops import se3 as se3_t
 from colmap_pcd_tpu_torch.ops import solvers as solvers_t
 
+from test_solvers import make_pnp_scene
+
 torch.set_num_threads(1)  # tier-1 runs several workers on few cores
 
 T = torch.as_tensor
@@ -282,3 +284,55 @@ def test_cuda_request_raises_without_cuda():
         else:
             with pytest.raises(RuntimeError, match="CUDA is not available"):
                 device_t.resolve(name)
+
+
+# ---------------------------------------------------------------------------
+# the multi-view and P6P DLTs on tests/test_solvers.py's inputs (its
+# rand_pose / project_norm draws): the points within 1e-4 of JAX's, the
+# pose within 1e-4 rad and 1e-4 relative (f32 nullspaces of different
+# eigensolvers), and both at test_solvers.py's own bars
+
+
+def _rand_pose(rng):
+    q = rng.normal(size=4)
+    return (q / np.linalg.norm(q)).astype(np.float32), (rng.normal(size=3)).astype(np.float32)
+
+
+def test_triangulate_multiview_parity():
+    rng = np.random.default_rng(0)
+    X = np.asarray([1.0, -0.5, 8.0], np.float32)
+    qs, ts, uvs = [], [], []
+    for _ in range(5):
+        q, t = _rand_pose(rng)
+        xc = np.asarray(se3_j.se3_apply(jnp.asarray(q), jnp.asarray(t), jnp.asarray(X[None])))[0]
+        qs.append(q)
+        ts.append(t)
+        uvs.append(xc[:2] / xc[2])
+    mask = np.asarray([1, 1, 1, 1, 0], np.float32)
+    uvs[4] = uvs[4] + 100.0  # the masked view is corrupt
+    args = (np.stack(qs), np.stack(ts), np.stack(uvs).astype(np.float32), mask)
+    Xj = np.asarray(solvers_j.triangulate_multiview(*map(jnp.asarray, args)))
+    Xt = solvers_t.triangulate_multiview(*map(T, args)).numpy()
+    np.testing.assert_allclose(Xt, Xj, atol=1e-4)
+    np.testing.assert_allclose(Xt, X, atol=1e-3)
+    # batched over leading dims: two points at once give each one's answer
+    both = solvers_t.triangulate_multiview(*(torch.stack([T(a), T(a)]) for a in args)).numpy()
+    np.testing.assert_allclose(both, np.stack([Xt, Xt]), atol=1e-5)
+
+
+def test_p6p_dlt_parity():
+    """tests/test_solvers.py's exact P6P scene (its `rng` fixture's seed 0),
+    and 12 points. The f32 nullspace of the unnormalized DLT's 12x12 Gram
+    matrix is poorly conditioned (on some 6-point draws both packages miss
+    the truth by 0.05-0.5 m), so the two eigensolvers agree to 2e-3 rad
+    and 2e-3 relative here; the port meets test_solvers.py's bar."""
+    rng = np.random.default_rng(0)
+    for n in (6, 12):
+        q, t, X, uv = (np.asarray(a) for a in make_pnp_scene(rng, n=n))
+        qj, tj = (np.asarray(a) for a in solvers_j.p6p_dlt(jnp.asarray(uv), jnp.asarray(X)))
+        qt, tt = (a.numpy() for a in solvers_t.p6p_dlt(T(uv), T(X)))
+        dq = min(np.linalg.norm(qt - qj), np.linalg.norm(qt + qj))
+        assert dq < 1e-3, dq  # |dq| ~ angle / 2
+        np.testing.assert_allclose(tt, tj, atol=2e-3 * max(1.0, np.linalg.norm(tj)))
+        assert float(np.asarray(se3_j.angle_between(jnp.asarray(qt), jnp.asarray(q)))) < 1e-3
+        np.testing.assert_allclose(tt, t, atol=1e-3)

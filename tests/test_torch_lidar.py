@@ -283,3 +283,68 @@ def test_lidar_map_keeps_the_packed_map(corridor):
     got_p, _, got_d = m.nn_query(m.points[:50] + np.float32(0.001), backend="device")
     np.testing.assert_array_equal(got_p, m.points[:50])
     assert got_d.max() < 0.01
+
+
+# ---------------------------------------------------------------------------
+# frustum culling and the voxel filter on tests/test_lidar.py's inputs: the
+# camera at the origin looking down +z (PINHOLE 500, 640x480), its six test
+# points, and its wall + ground map
+
+
+def _wall_map_arrays():
+    xs, ys = np.arange(-4, 4, 0.02), np.arange(-3, 3, 0.02)
+    X, Y = np.meshgrid(xs, ys)
+    wall = np.stack([X.ravel(), Y.ravel(), np.full(X.size, 10.0)], -1)
+    GX, GZ = np.meshgrid(np.arange(-4, 4, 0.05), np.arange(1, 15, 0.05))
+    ground = np.stack([GX.ravel(), np.full(GX.size, 2.0), GZ.ravel()], -1)
+    nrm = np.concatenate([np.tile([0.0, 0.0, -1.0], (len(wall), 1)), np.tile([0.0, -1.0, 0.0], (len(ground), 1))])
+    return np.concatenate([wall, ground]).astype(np.float32), nrm.astype(np.float32)
+
+
+def test_frustum_planes_and_culling_parity():
+    q, t = np.array([1.0, 0, 0, 0], np.float32), np.zeros(3, np.float32)
+    cam = (500.0, 500.0, 320.0, 240.0, 640, 480, 40.0)
+    pts = np.asarray([[0.0, 0.0, 10.0], [0.0, 0.0, -5.0], [0.0, 0.0, 45.0], [50.0, 0.0, 10.0],
+                      [5.0, 3.0, 10.0], [7.0, 0.0, 10.0]], np.float32)
+    pl_j = np.asarray(pc_j.frustum_planes(jnp.asarray(q), jnp.asarray(t), *cam))
+    pl_t = pc_t.frustum_planes(T(q), T(t), *cam)
+    np.testing.assert_allclose(pl_t.numpy(), pl_j, atol=1e-6)
+    np.testing.assert_allclose(np_geom.frustum_planes(q.astype(np.float64), t.astype(np.float64), *cam),
+                               pl_j, atol=1e-5)
+    mask = pc_t.points_in_frustum(pl_t, T(pts)).numpy()
+    np.testing.assert_array_equal(mask, [True, False, False, False, True, False])
+    np.testing.assert_array_equal(mask, np.asarray(pc_j.points_in_frustum(jnp.asarray(pl_j), jnp.asarray(pts))))
+    # a rotated, moved camera and random points: the same masks
+    rng = np.random.default_rng(7)
+    q2 = np_geom.so3_exp_quat(np.asarray([0.1, -0.3, 0.05])).astype(np.float32)
+    t2 = np.asarray([0.5, -0.2, 1.0], np.float32)
+    rand = rng.uniform(-30, 30, (5000, 3)).astype(np.float32)
+    pl_j = pc_j.frustum_planes(jnp.asarray(q2), jnp.asarray(t2), *cam)
+    pl_t = pc_t.frustum_planes(T(q2), T(t2), *cam)
+    m_j = np.asarray(pc_j.points_in_frustum(pl_j, jnp.asarray(rand)))
+    m_t = pc_t.points_in_frustum(pl_t, T(rand)).numpy()
+    assert 0 < m_t.sum() < len(rand) and (m_t != m_j).sum() == 0
+
+
+def test_frustum_candidates_and_voxel_downsample_parity():
+    pts, nrm = _wall_map_arrays()
+    opts = pc_j.ProjOptions(submap_cell=1.0)
+    mj = LidarMapJ.from_arrays(pts, nrm, opts)
+    mt = convert.lidar_map_from_numpy(
+        mj.points, mj.normals, mj.cell_keys, mj.cell_start, mj.cell_count, opts._asdict(), device="cpu",
+    )
+    params = np.asarray([500.0, 500.0, 320.0, 240.0] + [0.0] * 8, np.float32)
+    for q, t, budget in ((np.array([1.0, 0, 0, 0]), np.zeros(3), None),
+                         (np.array([0.995, 0.0, 0.0998, 0.0]), np.array([0.0, 0.0, 3.0]), 4096)):
+        idx_t, valid_t = mt.frustum_candidates(q, t, params, PINHOLE, 640, 480, budget)
+        idx_j, valid_j = mj.frustum_candidates(q, t, params, PINHOLE, 640, 480, budget)
+        np.testing.assert_array_equal(idx_t, idx_j)
+        np.testing.assert_array_equal(valid_t, valid_j)
+        assert valid_t.sum() > 0
+    for voxel in (0.5, 0.25):
+        vt, nt = mt.voxel_downsample(voxel)
+        vj, nj = mj.voxel_downsample(voxel)
+        np.testing.assert_array_equal(vt, vj)
+        np.testing.assert_array_equal(nt, nj)
+    # tests/test_lidar.py's bar
+    assert vt.shape[0] < mt.num_points // 10 and np.isfinite(vt).all()
