@@ -110,10 +110,21 @@ Phases, each printing its numbers on its own line:
      every fused point and every mesh vertex (K2 through
      LidarMap.nn_query), K2 timed at the fused cloud's query count beside
      the host kd-tree. `--dense-views` keeps the first N registered views;
- 13. checks: match_top2_u8 launched by every matcher run (spatial_matcher,
+ 13. the sharded paths (colmap_pcd_tpu_torch/parallel) over a mesh of
+     every visible card, or of cuda:0 repeated twice on one card: phase 6's
+     database, map and flags through IncrementalMapperController with
+     `mapper.dist_mesh` set (every BA solve distributed; seconds, ba_device
+     and its ba_shard part, K2 launches, reductions per solve, bytes reduced per LM iteration);
+     MatchPool over the 100 views' descriptors as floats (cap 1024) and
+     the 485 overlap-5 pairs, sharded and unsharded on cuda:0 (float K1
+     launches, seconds); run_patch_match_stereo with `mesh=` and
+     sequentially on copies of phase 12's workspace cut to its first 10
+     views; dryrun_multichip over the mesh's size;
+ 14. checks: match_top2_u8 launched by every matcher run (spatial_matcher,
      vocab_tree_matcher and the loop-detecting sequential matcher
-     included), match_top2 by the guided matcher and K2 by every lidar
-     mapper run, bundle_adjuster and hierarchical_mapper; the pixel world
+     included), match_top2 by the guided matcher and the sharded
+     MatchPool, K2 by every lidar mapper run (the sharded one included),
+     bundle_adjuster and hierarchical_mapper; the pixel world
      holds 100 images of 300-2 048 keypoints and its model >= 95%
      registered with ATE < 0.10 m and scale error < 2%, and so do the
      overlapped run (with no error in its feed) and the descriptor world
@@ -138,7 +149,11 @@ Phases, each printing its numbers on its own line:
      sweep equal to the CPU's, two card runs of the sweep, the splat and the
      mesh byte-identical, a non-empty fused cloud and Poisson mesh within
      their point-to-plane bars, faces in both Delaunay meshes and in the
-     one-click pipeline's mesh.
+     one-click pipeline's mesh; the sharded mapper >= 95% registered at ATE
+     < 0.10 m, scale error < 2% and within 0.02 m of phase 6's ATE, the
+     sharded MatchPool's (idx, ok) identical to the unsharded pool's, the
+     sharded stereo's depth identical to the sequential run's on every
+     view.
 
 `--kernels-only` stops after phase 4 (on a corridor map built like the
 pixel world's) and prints no result line: a short first look at a changed
@@ -2013,6 +2028,141 @@ def _require_dense(dn: dict):
         raise AssertionError(f"dense: automatic_reconstructor --dense 1 meshed {dn['auto_faces']} faces")
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the sharded paths (colmap_pcd_tpu_torch/parallel) on the card
+
+
+def _smoke_mesh():
+    """Every visible card when there are two or more, else cuda:0 twice
+    (the counterpart of the JAX tests' virtual devices): (mesh, label)."""
+    import torch
+
+    from colmap_pcd_tpu_torch.parallel.mesh import make_mesh
+
+    if torch.cuda.device_count() >= 2:
+        return make_mesh(), f"{torch.cuda.device_count()} cards"
+    return make_mesh(2, devices=["cuda:0"] * 2), "cuda:0 repeated twice (one card)"
+
+
+def _sharded_mapper(world: dict, mesh, tmp: str) -> dict:
+    """The pixel world's lidar mapper (phase 6's database, map, prior and
+    flags) through IncrementalMapperController with every BA solve
+    distributed over the mesh."""
+    import torch
+
+    from colmap_pcd_tpu_torch import cli, device
+    from colmap_pcd_tpu_torch.utils.logging_utils import PHASES
+    from synthetic_torch import mapper_argv
+
+    out_dir = os.path.join(tmp, "sharded_model")
+    ctl = cli.mapper_controller(mapper_argv(world["paths"], out_dir, *PIXEL_MAPPER_FLAGS)[1:],
+                                device.resolve("cuda"))
+    ctl.mapper.dist_mesh = mesh
+    _reset_phases()
+    torch.cuda.reset_peak_memory_stats()
+    manager, seconds, launches = _counted(ctl.run, _kernel_counters())
+    manager.write(out_dir)
+    res = _read_model(out_dir, world["gt"])
+    res.update(_mapper_numbers(seconds, res["registered"]))
+    # the distributed solves are the `ba_device` phases; each reduces its
+    # initial cost, then per LM iteration (dense tier) its system and cost
+    solves = PHASES.counts.get("ba_device", 0)
+    reductions = PHASES.counts.get("ba_reductions", 0)
+    iterations = max((reductions - solves) / 2, 1)
+    res.update(launches=launches, dist_solves=solves, ba_device_s=PHASES.totals.get("ba_device", 0.0),
+               ba_shard_s=PHASES.totals.get("ba_shard", 0.0),
+               reductions_per_solve=reductions / max(solves, 1),
+               bytes_per_iteration=(PHASES.counts.get("ba_reduced_bytes", 0) - 4 * solves) / iterations)
+    return res
+
+
+def _sharded_pool(world: dict, mesh) -> dict:
+    """MatchPool over the pixel world's 100 views (descriptors as floats,
+    cap 1024) and phase 6's 485 overlap-5 pairs, sharded over the mesh and
+    unsharded on cuda:0."""
+    from colmap_pcd_tpu_torch.models.database import Database
+    from colmap_pcd_tpu_torch.ops import match_kernel
+    from colmap_pcd_tpu_torch.parallel import dist_matching
+
+    db = Database(world["paths"]["database"])
+    ids = sorted(db.images())
+    descs = {i: db.read_descriptors(i).astype(np.float32) for i in ids}
+    db.close()
+    pairs = [(i, j) for i in ids for j in ids if 0 < j - i <= 5]
+    counter = {"match_top2": match_kernel.match_top2}
+    sharded = dist_matching.MatchPool(descs, mesh=mesh, cap=1024)
+    (idx_s, ok_s), s_seconds, s_launches = _counted(lambda: sharded.match_pairs(pairs), counter)
+    one = dist_matching.MatchPool(descs, cap=1024, device="cuda:0")
+    (idx_1, ok_1), one_seconds, one_launches = _counted(lambda: one.match_pairs(pairs), counter)
+    return {"pairs": len(pairs), "matches": int(ok_s.sum()), "pairs_matched": int(ok_s.any(axis=1).sum()),
+            "identical": bool(np.array_equal(ok_s, ok_1) and np.array_equal(idx_s, idx_1)),
+            "seconds": s_seconds, "launches": s_launches["match_top2"],
+            "unsharded_seconds": one_seconds, "unsharded_launches": one_launches["match_top2"]}
+
+
+def _sharded_stereo(st: dict, mesh, tmp: str, n_views: int = 10) -> dict:
+    """run_patch_match_stereo over the mesh and sequentially on cuda:0, each
+    on its own copy of phase 12's workspace cut to the first n_views
+    registered views. Nothing is padded, so every view's depth map must be
+    the same floats both ways."""
+    from colmap_pcd_tpu_torch.models import mvs
+
+    opts = mvs.DenseOptions()
+    runs = {}
+    for label, kw in (("sharded", dict(mesh=mesh)), ("sequential", dict(device="cuda:0"))):
+        ws = os.path.join(tmp, f"stereo_{label}")
+        rec = _dense_workspace(st["undistorted_workspace"], ws, n_views)
+        n, seconds, _ = _counted(lambda: mvs.run_patch_match_stereo(ws, opts, rec=rec, **kw), {})
+        runs[label] = (ws, rec, n, seconds)
+    ws_s, rec, n_s, s_seconds = runs["sharded"]
+    ws_q, _, n_q, q_seconds = runs["sequential"]
+    srcs = {i: mvs._select_sources(rec, i, opts.num_src_images) for i in rec.registered_ids}
+    res = {"views": n_s, "sequential_views": n_q, "seconds": s_seconds, "sequential_seconds": q_seconds,
+           "sources": sorted({len(s) for s in srcs.values() if s}), "identical": [], "not_identical": []}
+    for i in sorted(i for i, s in srcs.items() if s):
+        name = rec.images[i].name.replace("/", "_") + ".npy"
+        a, b = (np.load(os.path.join(ws, "stereo", "depth_maps", name)) for ws in (ws_s, ws_q))
+        res["identical" if np.array_equal(a, b) else "not_identical"].append(i)
+    return res
+
+
+def run_sharded(args, world: dict, st: dict, tmp: str) -> dict:
+    """Phase 13: the sharded paths on the card, over every visible card or
+    cuda:0 repeated twice: the pixel world's mapper with distributed BA,
+    MatchPool sharded against unsharded, sharded stereo against sequential,
+    and dryrun_multichip."""
+    from colmap_pcd_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    mesh, label = _smoke_mesh()
+    _log(f"[sharded] mesh of {mesh.size}: {label}, devices {[str(d) for d in mesh.devices]}")
+    res = {"mesh": label, "mesh_size": mesh.size}
+    res["mapper"] = _sharded_mapper(world, mesh, tmp)
+    res["pool"] = _sharded_pool(world, mesh)
+    res["stereo"] = _sharded_stereo(st, mesh, tmp)
+    device = None if mesh.size == len(set(mesh.devices)) else "cuda:0"
+    res["dryrun"], res["dryrun_seconds"], _ = _counted(lambda: dryrun_multichip(mesh.size, device=device), {})
+    return res
+
+
+def _require_sharded(sh: dict, px: dict, n_images: int):
+    """Phase 13's bars (PERF.md section 2)."""
+    m = sh["mapper"]
+    _require_model("pixel world, sharded BA", m, n_images)
+    if not abs(m["ate_m"] - px["ate_m"]) < 0.02:
+        raise AssertionError(f"sharded BA: ATE {m['ate_m']} m against phase 6's {px['ate_m']} m")
+    if m["dist_solves"] <= 0 or m["reductions_per_solve"] < 3:
+        raise AssertionError(f"sharded BA: {m['dist_solves']} solves, {m['reductions_per_solve']} reductions each")
+    p = sh["pool"]
+    if not p["identical"] or p["pairs_matched"] != p["pairs"]:
+        raise AssertionError(f"sharded MatchPool: identical {p['identical']}, {p['pairs_matched']} of "
+                             f"{p['pairs']} pairs matched")
+    s = sh["stereo"]
+    if s["views"] != s["sequential_views"] or s["views"] <= 0 or s["not_identical"] \
+            or len(s["identical"]) != s["views"]:
+        raise AssertionError(f"sharded stereo: {s['views']} views (sequential {s['sequential_views']}), "
+                             f"not identical {s['not_identical']}")
+
+
 def _require_model(label: str, res: dict, n_images: int):
     """The lidar paths' bars (PERF.md section 2)."""
     if res["registered"] < 0.95 * n_images:
@@ -2285,7 +2435,30 @@ def main(argv=None) -> int:
              f"{k2f['host_kdtree_ms']:.4f} ms (host clock, median of 3); max rel dist against the kd-tree "
              f"{k2f['max_rel_vs_kdtree']:.3g}")
 
-    # 13. checks
+        # 13. the sharded paths over a mesh of devices
+        sh = run_sharded(args, world, st, tmp)
+        m = sh["mapper"]
+        _log(f"[sharded] pixel world mapper, every BA solve distributed over the mesh: registered "
+             f"{m['registered']}/{args.n_images}, ATE {m['ate_m'] * 1e3:.3f} mm (phase 6: "
+             f"{px['ate_m'] * 1e3:.3f} mm), scale error {m['scale_err']:.6f}; {m['seconds']:.3f} s, ba_device "
+             f"{m['ba_device_s']:.3f} s over {m['dist_solves']} distributed solves (of it sharding and upload, "
+             f"ba_shard, {m['ba_shard_s']:.3f} s), K2 launches "
+             f"{m['launches']['nn_argmin']}, {m['reductions_per_solve']:.2f} reductions per solve, "
+             f"{m['bytes_per_iteration']:.1f} bytes reduced per LM iteration (mean), peak device memory "
+             f"{m['peak_mem_bytes'] / 2**20:.1f} MiB")
+        _log("[sharded] mapper phases:\n" + m["phases"])
+        p = sh["pool"]
+        _log(f"[sharded] MatchPool, {p['pairs']} pairs at cap 1024 (float descriptors): sharded "
+             f"{p['seconds']:.3f} s with {p['launches']} float-K1 launches, unsharded on cuda:0 "
+             f"{p['unsharded_seconds']:.3f} s with {p['unsharded_launches']}; (idx, ok) identical: "
+             f"{p['identical']}; {p['matches']} matches, {p['pairs_matched']} pairs with matches")
+        s_ = sh["stereo"]
+        _log(f"[sharded] patch_match_stereo on the first 10 views (source counts {s_['sources']}): sharded "
+             f"{s_['seconds']:.3f} s, sequential {s_['sequential_seconds']:.3f} s, {s_['views']} views; depth "
+             f"identical on {len(s_['identical'])} of them")
+        _log(f"[sharded] dryrun_multichip({sh['mesh_size']}): {sh['dryrun']} in {sh['dryrun_seconds']:.3f} s")
+
+    # 14. checks
     u8_launches = {"pixel world": px["matcher_launches"]["match_top2_u8"],
                    "overlapped": ov["launches"]["match_top2_u8"],
                    "descriptor world": res["matcher_launches"]["match_top2_u8"],
@@ -2294,7 +2467,10 @@ def main(argv=None) -> int:
                    "overlapped": ov["launches"]["nn_argmin"],
                    "descriptor world": res["mapper_launches"]["nn_argmin"],
                    "bundle_adjuster": cmds["bundle_adjuster"]["launches"]["nn_argmin"],
-                   "hierarchical_mapper": cmds["hierarchical_mapper"]["launches"]["nn_argmin"]}
+                   "hierarchical_mapper": cmds["hierarchical_mapper"]["launches"]["nn_argmin"],
+                   "pixel world, sharded BA": sh["mapper"]["launches"]["nn_argmin"]}
+    f32_launches = {"guided matcher, classic world": cl["guided_launches"]["match_top2"],
+                    "MatchPool, sharded": sh["pool"]["launches"]}
     u8_launches["spatial_matcher"] = cmds["spatial_matcher"]["launches"]["match_top2_u8"]
     for label in ("vocab_tree_matcher", "sequential_matcher loop detection"):
         u8_launches[label] = ph["retrieval"]["commands"][label]["launches"]["match_top2_u8"]
@@ -2304,8 +2480,9 @@ def main(argv=None) -> int:
     for path, n in k2_launches.items():
         if n <= 0:
             raise AssertionError(f"the {path} run never launched K2")
-    if cl["guided_launches"]["match_top2"] <= 0:
-        raise AssertionError("the guided matcher never launched the float K1")
+    for path, n in f32_launches.items():
+        if n <= 0:
+            raise AssertionError(f"the {path} run never launched the float K1")
     # the corridor's value-noise texture gives ~450 keypoints per view above
     # the peak threshold (both packages find the same number on one view)
     if len(px["keypoints"]) != args.n_images or min(px["keypoints"]) < 300 \
@@ -2327,6 +2504,7 @@ def main(argv=None) -> int:
     _require_sfm_tools(st, px, args.n_images)
     _require_retrieval_and_rigs(ph, args.n_images)
     _require_dense(dn)
+    _require_sharded(sh, px, args.n_images)
 
     def entry(name, source, line, launches, rec, **more):
         return {
@@ -2348,7 +2526,7 @@ def main(argv=None) -> int:
         entry("nn_argmin", "nn_argmin.cu", 191, k2_launches["pixel world"], k2,
               launches_by_path=k2_launches),
         entry("match_top2", "match_top2.cu", 94, cl["guided_launches"]["match_top2"], k1["match_top2"],
-              launches_by_path={"guided matcher, classic world": cl["guided_launches"]["match_top2"]}),
+              launches_by_path=f32_launches),
         entry("match_top2_u8", "match_top2_u8.cu", 94, u8_launches["pixel world"],
               k1["match_top2_u8"], mma="wgmma", launches_by_path=u8_launches),
     ]}))

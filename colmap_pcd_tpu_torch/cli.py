@@ -331,10 +331,23 @@ def cmd_mapper(argv, device):
     """Incremental mapping from a database (+ lidar map + pose priors) to a
     COLMAP model: lidar-seeded init with --Mapper.lidar_pointcloud_path,
     classic two-view init without."""
-    p, rest = _split(argv, "input_path", "output_path")
-    om, _ = _opt(rest)
+    p, _ = _split(argv, "output_path")
+    manager = mapper_controller(argv, device).run()
+    if p["output_path"]:
+        manager.write(p["output_path"])
+        print(f"Wrote {manager.size()} model(s) to {p['output_path']}")
+    return 0 if manager.size() > 0 else 1
+
+
+def mapper_controller(argv, device):
+    """The `mapper` command's controller for its command line (the
+    database, lidar map, pose priors and --input_path model it names;
+    --output_path is the caller's). A caller may set the controller's
+    `mapper.dist_mesh` before `run()`."""
     from .models.controllers import ControllerOptions, IncrementalMapperController
 
+    p, rest = _split(argv, "input_path", "output_path")
+    om, _ = _opt(rest)
     rec, graph, lmap, priors = _load_mapper_inputs(om, p["input_path"], device)
     copts = ControllerOptions(
         min_num_matches=om.mapper.min_num_matches,
@@ -348,14 +361,9 @@ def cmd_mapper(argv, device):
         image_pose_save_folder=om.mapper.image_pose_save_folder,
         image_path=om.image_path,
     )
-    ctl = IncrementalMapperController(
+    return IncrementalMapperController(
         rec, graph, _mapper_options(om), copts, lidar_map=lmap, pose_priors=priors, device=device
     )
-    manager = ctl.run()
-    if p["output_path"]:
-        manager.write(p["output_path"])
-        print(f"Wrote {manager.size()} model(s) to {p['output_path']}")
-    return 0 if manager.size() > 0 else 1
 
 
 def cmd_hierarchical_mapper(argv, device):

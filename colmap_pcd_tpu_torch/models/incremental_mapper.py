@@ -27,7 +27,9 @@ Port of colmap_pcd_tpu/models/incremental_mapper.py: the host logic is
 carried over unchanged; the device call sites (ray-plane seeding, PnP
 RANSAC, bundle adjustment) run the PyTorch ops on `self.device`, one
 device->host fetch per call. BA problems keep the JAX package's padded,
-bucketed shapes, so both implementations see identical problems.
+bucketed shapes, so both implementations see identical problems. With
+`dist_mesh` (a parallel/mesh.Mesh) set, every local and global BA solve
+goes through parallel/dist_ba over that mesh, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -184,6 +186,9 @@ class IncrementalMapper:
         # per-image depth-projection cache for the current BA round
         # (lidar_searched_image_ids_, bundle_adjustment.h:189)
         self._proj_cache: dict[int, tuple[tuple[int, int, int], tuple, dict]] = {}
+        # optional parallel/mesh.Mesh: route every BA solve through the
+        # distributed Schur solver (parallel/dist_ba.py) over this mesh
+        self.dist_mesh = None
 
     # ------------------------------------------------------------------ lidar
     def clear_lidar_points(self):
@@ -1330,15 +1335,17 @@ class IncrementalMapper:
             num_pose_blocks = 0  # no compaction win; keep identity layout
             cam_blk = np.arange(C, dtype=np.int32)
 
-        prob = ba_ops.make_problem(
+        # numpy fields; uploaded whole here, or per shard by dist_ba
+        prob = ba_ops.host_problem(
             cam_q, cam_t, intr, points,
             obs_cam, obs_pt, obs_uv,
             cam_k=cam_k, cam_model=cam_model, cam_blk=cam_blk,
             obs_valid=obs_valid, track_len=T,
             lidar_plane=lidar_plane, lidar_w=lidar_w,
             pose_fixed=pose_fixed, tvec_fixed=tvf, point_fixed=point_fixed,
-            device=self.device,
         )
+        if self.dist_mesh is None:
+            prob = ba_ops.to_device(prob, self.device)
         cfg = ba_ops.BAConfig(
             num_pose_blocks=num_pose_blocks,
             model_id=model_ids[0],
@@ -1362,7 +1369,12 @@ class IncrementalMapper:
         )
         _t_assemble.__exit__()
         with PHASES.phase("ba_device"):
-            out = ba_ops.solve(prob, cfg)
+            if self.dist_mesh is not None:
+                from ..parallel import dist_ba
+
+                out = dist_ba.solve_distributed(prob, cfg, self.dist_mesh)
+            else:
+                out = ba_ops.solve(prob, cfg)
             q_out, t_out, intr_out, p_out, init_c, fin_c = (
                 x.cpu().numpy()
                 for x in (out.cam_q, out.cam_t, out.intr, out.points,

@@ -10,9 +10,12 @@ normals (fused.ply).
 
 Each image is read and uploaded once; a view's maps come back to the host
 in one fetch per pass (the PHASES counter `stereo_fetch` counts them, and
-`fusion_fetch` the masks of fusion). The JAX package's sharded stereo
-(`mesh=`, parallel/dist_mvs.py) waits for the port's multi-device step
-(ROADMAP queue 1 step 11) and has no counterpart here.
+`fusion_fetch` the masks of fusion). Both passes sweep the views through
+parallel/dist_mvs.py, in groups of one view per device of `mesh=`
+(parallel/mesh.py; without a mesh one view at a time), as the JAX
+package's `_run_patch_match_sharded` fans them out, but without its
+padding of sources and views, so every view's maps equal the one-device
+run's.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ from .. import device as device_mod
 from ..io import ply as ply_io
 from ..ops import np_geom
 from ..ops import stereo as stereo_ops
+from ..parallel import dist_mvs
 from ..utils import image as image_utils
 from ..utils.logging_utils import PHASES
 from .reconstruction import Reconstruction
@@ -124,15 +128,17 @@ def run_patch_match_stereo(
     rec: Reconstruction | None = None,
     images: dict[int, np.ndarray] | None = None,
     device=None,
+    mesh=None,
 ) -> int:
     """Compute depth/normal/cost maps for every registered view with a
-    source view, on `device` (None: CUDA).
+    source view, on `device` (None: CUDA; with a mesh, its root device), or
+    with `mesh` sharded over its devices.
 
     workspace/sparse = undistorted model; workspace/images = undistorted
     images (run_image_undistorter layout). Writes workspace/stereo/
     {depth_maps,normal_maps,cost_maps}/<name>.npy. Returns the view count.
     """
-    dev = device_mod.resolve(device)
+    dev = mesh.root if mesh is not None and device is None else device_mod.resolve(device)
     if rec is None:
         rec = Reconstruction.read(os.path.join(workspace, "sparse"))
     sdir = os.path.join(workspace, "stereo")
@@ -202,27 +208,40 @@ def run_patch_match_stereo(
         if prob is not None:
             problems[ref_id] = prob
 
+    # both passes sweep the views in groups of one per mesh device (without
+    # a mesh: one view at a time), each group's maps saved before the next
+    ids = list(problems)
+    n = mesh.size if mesh is not None else 1
+
+    def sweep(src_depths_of=None) -> dict:
+        depth_of = {}
+        for g in range(0, len(ids), n):
+            group = ids[g : g + n]
+            batch = [[problems[i][f] for i in group] for f in range(1, 8)]
+            geom = {}
+            if src_depths_of is not None:
+                geom = dict(src_depths=[src_depths_of(i) for i in group], use_geom=True)
+            maps = dist_mvs.plane_sweep_batch(*batch, sopts, mesh=mesh, device=dev, **geom)
+            for i, depth, cost, normal in zip(group, *maps):
+                save_maps(i, depth, cost, normal)
+                depth_of[i] = depth
+        return depth_of
+
     # pass 1: photometric-only sweeps (the reference's non-geom first run)
-    photo_depth = {}
-    for ref_id, prob in problems.items():
-        depth, cost, normal = stereo_ops.plane_sweep(*prob[1:], sopts)
-        photo_depth[ref_id] = depth
-        save_maps(ref_id, depth, cost, normal)
+    photo_depth = sweep()
 
     # pass 2: rerun with the geometric-consistency term against the sources'
     # pass-1 depth maps (PatchMatchController geom-consistent rerun)
     if options.geom_consistency:
-        for ref_id, prob in problems.items():
-            shape = prob[1].shape
-            src_depths = torch.stack([
+        def src_depths_of(ref_id):
+            shape = problems[ref_id][1].shape
+            return torch.stack([
                 _fit(photo_depth[s], shape) if s in photo_depth
                 else torch.zeros(shape, dtype=torch.float32, device=dev)
-                for s in prob[0]
+                for s in problems[ref_id][0]
             ])
-            depth, cost, normal = stereo_ops.plane_sweep(
-                *prob[1:], sopts, src_depths=src_depths, use_geom=True,
-            )
-            save_maps(ref_id, depth, cost, normal)
+
+        sweep(src_depths_of)
     return len(problems)
 
 

@@ -22,6 +22,14 @@ launch alone, as one CUDA graph of 20 launches (device time, no host).
     and points per group of the few-queries scan; blocks per SM of the
     split. These variants stay right and are held against the plain version.
 
+With `--k2-library Q` it times only K2's library yardstick, blocked
+`torch.cdist` + `argmin` (chip_smoke._cdist_argmin), once at Q queries
+against the pixel world's 504 000-point map, beside K2 on the same queries
+and the bound chip_smoke computes for that shape, and stops: at the fused
+cloud's Q = 9 768 196 one call takes tens of seconds, too long for every
+smoke run. Its time does not depend on where the queries lie; they are map
+points moved by 5 cm, as a fused cloud's are.
+
 Every line carries the card's name and power limit (first line). Imports
 nothing of JAX.
 """
@@ -49,6 +57,8 @@ NO_MMAS = "for (int k = 0; k < 0; ++k) wgmma_m64n128k32_u8("
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--k2-library", type=int, metavar="Q", default=None,
+                    help="time only K2's library yardstick (and K2) at Q queries, then stop")
     args = ap.parse_args(argv)
 
     import torch
@@ -62,6 +72,8 @@ def main(argv=None) -> int:
 
     dev = torch.device("cuda")
     print(f"[env] nvidia-smi: {chip_smoke._nvidia_smi()}", flush=True)
+    if args.k2_library:
+        return k2_library(args.k2_library, args.seed)
     variants = os.path.join(cuda_build.BUILD_DIR, "variants")
     os.makedirs(variants, exist_ok=True)
 
@@ -147,6 +159,54 @@ def main(argv=None) -> int:
         for per_sm in (1, 2, 4):
             time_k2(f"points split among threads: {pq} queries a block, groups of {pg}",
                     src, per_sm, 1 << 30)
+    return 0
+
+
+def k2_library(Q: int, seed: int) -> int:
+    """Blocked torch.cdist + argmin once at Q queries against the pixel
+    world's map (CUDA events, after a warm-up on one block), K2 on the same
+    queries, their agreement, and the bound of that shape."""
+    import time
+
+    import torch
+
+    import chip_smoke
+    from colmap_pcd_tpu_torch.models.lidar_map import LidarMap
+    from colmap_pcd_tpu_torch.ops import nn_kernel
+    from synthetic_torch import build_corridor_map
+
+    dev = torch.device("cuda")
+    pts, nrm = build_corridor_map(np.random.default_rng(0), length=100 * chip_smoke.PIXEL_STEP + 25)
+    lmap = LidarMap.from_arrays(pts, nrm, device="cpu")
+    rng = np.random.default_rng(seed)
+    q = (lmap.points[rng.integers(0, len(lmap.points), Q)] + rng.normal(0, 0.05, (Q, 3))).astype(np.float32)
+    q_d = torch.as_tensor(q, device=dev)
+    p_d = torch.as_tensor(lmap.points, device=dev)
+    p4 = nn_kernel.pack_points(p_d)
+    N = p_d.shape[0]
+
+    def timed(fn):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        torch.cuda.synchronize()
+        return out, start.elapsed_time(end)
+
+    chip_smoke._cdist_argmin(q_d[:1024], p_d)
+    nn_kernel.nn_argmin(q_d[:1024], p4)
+    t0 = time.perf_counter()
+    lib_idx, lib_ms = timed(lambda: chip_smoke._cdist_argmin(q_d, p_d))
+    wall_s = time.perf_counter() - t0
+    (k2_idx, k2_dist), k2_ms = timed(lambda: nn_kernel.nn_argmin(q_d, p4))
+    d_lib = torch.linalg.norm(p_d[lib_idx] - q_d, dim=1)
+    worst = float(torch.max(torch.abs(d_lib - k2_dist) / torch.clamp(k2_dist, min=1e-6)))
+    differ = int((lib_idx != k2_idx.long()).sum())
+    bound_ms, bound_by = chip_smoke._bound(12 * Q + 12 * N + 8 * Q, 8.0 * Q * N, chip_smoke.F32_FLOPS)
+    print(f"[k2 library] Q={Q} N={N}: cdist+argmin (blocks of 1024) {lib_ms:.4f} ms (CUDA events, one call; "
+          f"{wall_s:.3f} s host clock); K2 {k2_ms:.4f} ms (one call); bound {bound_ms:.4f} ms ({bound_by}); "
+          f"indices differing {differ}, the library's distances within {worst:.3g} relative of K2's "
+          "(cdist forms |q|^2 + |p|^2 - 2 q.p, which loses millimetres at map scale)", flush=True)
     return 0
 
 

@@ -338,3 +338,90 @@ def test_poisson_on_gpu_repeats_and_matches_cpu(cuda_device):
     from scipy.spatial import cKDTree
 
     assert cKDTree(vc).query(vg)[0].max() < 1e-3
+
+
+def _noisy_ba_problem(device, n_pts=128, n_cams=5, seed=1):
+    """tests/test_torch_ba.py's problem built with the port's make_problem:
+    cameras stepping down +z looking at points on a wall and the ground,
+    0.5 px noise, perturbed poses and points, lidar planes on 60% of the
+    points, camera 0 fixed."""
+    from colmap_pcd_tpu_torch.ops import ba as ba_t
+    from colmap_pcd_tpu_torch.ops import np_geom
+
+    rng = np.random.default_rng(seed)
+    params = np.asarray([500.0, 505.0, 320.0, 240.0], np.float32)
+    on_wall = rng.random(n_pts) < 0.5
+    X = np.where(
+        on_wall[:, None],
+        np.stack([np.full(n_pts, 4.0), rng.uniform(-2, 2, n_pts), rng.uniform(6, 20, n_pts)], -1),
+        np.stack([rng.uniform(-4, 4, n_pts), np.full(n_pts, 2.0), rng.uniform(6, 20, n_pts)], -1),
+    )
+    qs, ts, obs_cam, obs_pt, obs_uv = [], [], [], [], []
+    for c in range(n_cams):
+        yaw = 0.03 * np.sin(c)
+        q = np.asarray([np.cos(yaw / 2), 0.0, np.sin(yaw / 2), 0.0])
+        t = -np_geom.quat_to_rotmat(q) @ np.asarray([0.2 * np.sin(c), 0.1 * c, 1.0 * c])
+        xy, z = np_geom.project(1, np.pad(params, (0, 8)), q, t, X)
+        vis = (z > 1.0) & (xy[:, 0] > 0) & (xy[:, 0] < 640) & (xy[:, 1] > 0) & (xy[:, 1] < 480)
+        for p in np.nonzero(vis)[0]:
+            obs_cam.append(c)
+            obs_pt.append(p)
+            obs_uv.append(xy[p] + rng.normal(0, 0.5, 2))
+        qs.append(q)
+        ts.append(t)
+    qs, ts = np.asarray(qs), np.asarray(ts)
+    dq = rng.normal(0, 0.01, (n_cams, 3))
+    qs_p = np.asarray([np_geom.quat_mul(np.concatenate([[1.0], 0.5 * d]), q) for d, q in zip(dq, qs)])
+    qs_p /= np.linalg.norm(qs_p, axis=-1, keepdims=True)
+    ts_p = ts + rng.normal(0, 0.05, ts.shape)
+    qs_p[0], ts_p[0] = qs[0], ts[0]
+    plane = np.where(on_wall[:, None], [[-1.0, 0, 0, 4.0]], [[0, -1.0, 0, 2.0]])
+    pose_fixed = np.zeros(n_cams)
+    pose_fixed[0] = 1.0
+    return ba_t.make_problem(
+        qs_p, ts_p, params, X + rng.normal(0, 0.05, X.shape), np.asarray(obs_cam), np.asarray(obs_pt),
+        np.asarray(obs_uv), device=device, track_len=int(np.bincount(obs_pt).max()), lidar_plane=plane,
+        lidar_w=np.where(rng.random(n_pts) < 0.6, 10.0, 0.0), pose_fixed=pose_fixed,
+    )
+
+
+def test_distributed_ba_on_card_equals_cpu(cuda_device):
+    """A 2-shard solve_distributed on the card (cuda repeated twice) against
+    the same 2-shard solve on the CPU, at tests/test_torch_parallel.py's
+    bars: cam_t within 1e-3, points within 1e-2, final costs within 1e-3
+    relative."""
+    from colmap_pcd_tpu_torch.ops import ba as ba_t
+    from colmap_pcd_tpu_torch.parallel import dist_ba
+    from colmap_pcd_tpu_torch.parallel import mesh as mesh_lib
+
+    cfg = ba_t.BAConfig(model_id=1, max_iterations=30, point_chunk=64)
+    cpu = dist_ba.solve_distributed(_noisy_ba_problem("cpu"), cfg, mesh_lib.make_mesh(2, devices=["cpu"] * 2))
+    card = dist_ba.solve_distributed(_noisy_ba_problem(cuda_device), cfg,
+                                     mesh_lib.make_mesh(2, devices=[cuda_device] * 2))
+    assert card.points.device.type == "cuda"
+    assert float(card.final_cost) < 0.5 * float(card.initial_cost)
+    np.testing.assert_allclose(card.cam_t.cpu().numpy(), cpu.cam_t.numpy(), atol=1e-3)
+    assert np.abs(card.points.cpu().numpy() - cpu.points.numpy()).max() < 1e-2
+    np.testing.assert_allclose(float(card.final_cost), float(cpu.final_cost), rtol=1e-3)
+
+
+def test_match_pool_sharded_on_card_goes_through_the_float_kernel(cuda_device):
+    """A MatchPool sharded over the card twice launches the float K1 and
+    gives exactly the unsharded pool's (idx, ok): the kernel forms each
+    pair's similarities in one fixed k order, whatever the batch."""
+    from colmap_pcd_tpu_torch.parallel import dist_matching
+    from colmap_pcd_tpu_torch.parallel import mesh as mesh_lib
+
+    rng = np.random.default_rng(0)
+    base = rng.normal(size=(300, 128))
+    base /= np.linalg.norm(base, axis=-1, keepdims=True)
+    descs = {i: ((base + rng.normal(0, 0.03, base.shape)) * 255).astype(np.float32) for i in range(1, 9)}
+    pairs = [(i, j) for i in range(1, 9) for j in range(i + 1, min(i + 4, 9))]  # 15: a padded batch
+    before = match_kernel.match_top2.launches
+    mesh = mesh_lib.make_mesh(2, devices=[cuda_device] * 2)
+    idx_m, ok_m = dist_matching.MatchPool(descs, mesh=mesh, cap=512).match_pairs(pairs)
+    assert match_kernel.match_top2.launches > before
+    idx_l, ok_l = dist_matching.MatchPool(descs, cap=512, device=cuda_device).match_pairs(pairs)
+    np.testing.assert_array_equal(ok_m, ok_l)
+    np.testing.assert_array_equal(idx_m, idx_l)
+    assert ok_m.shape[0] == len(pairs) and ok_m.any(axis=1).all()
