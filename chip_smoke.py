@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (colmap_pcd_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--n-images 100] [--descriptor-images 50]
-                          [--overlap-images 30] [--classic-images 20]
-                          [--rig-snapshots 100] [--rig-points 20000]
-                          [--dense-views N] [--seed 0]
+    python3 chip_smoke.py [--n-images 100] [--descriptor-images 30]
+                          [--overlap-images 30] [--ref-images 100]
+                          [--classic-images 20] [--rig-snapshots 50]
+                          [--rig-points 20000] [--dense-views N] [--seed 0]
+                          [--kernels-only | --long-images N]
 
 Phases, each printing its numbers on its own line:
   1. environment: the card's name and power limit (nvidia-smi), torch/CUDA;
@@ -25,7 +26,9 @@ Phases, each printing its numbers on its own line:
   4. both K1 kernels against their plain versions: the pixel world's chunk
      (B = 16 pairs at cap 1024, ragged 430-540 valid rows), a matcher chunk
      at the feature limit (B = 16 at cap 2048, ragged 1 500-2 048), the
-     descriptor world's chunk (B = 16 at cap 4096, ragged 1 900-2 200), one
+     descriptor world's chunk (B = 16 at cap 4096, ragged 1 900-2 200), the
+     reference-scale world's chunk (B = 16 at cap 1024, ragged 740-850), a
+     chunk at the feature cap (B = 16 at cap 8192, ragged 6 000-8 192), one
      pair at 8192 x 8192, a ragged 1000 x 1537 pair
      and a pair with duplicated descriptors. The uint8 cases are the float
      ones quantized as the world generator quantizes descriptors; the uint8
@@ -39,17 +42,39 @@ Phases, each printing its numbers on its own line:
      the tolerances of tests/test_torch_sift.py), the CUDA batch extracted
      twice (identical bytes), TF32 off (asserted); ms per batch, kernels
      launched per batch, peak memory; one batch of 4 images at 1280x960
-     with 8192 features and 4 octaves for its time and peak memory;
+     with 8192 features and 4 octaves for its time and peak memory, its
+     first image also extracted on the CPU and held to the card's by the
+     same tolerances. The reference-scale world renders on the host from
+     here on, beside phases 5-7;
   6. the pixel world, the main path from pixels: the 100 rendered images
      through `cli.main feature_extractor` (PINHOLE with the known
      intrinsics), the sequential matcher at overlap 5 without the quadratic
      offsets (match_top2_u8) and `cli.main mapper` on the lidar map (K2)
      with the pose prior of image 1, each with the launch counts zeroed just
      before it; the model is read back and its ATE printed;
-  7. the overlapped front end: the first 30 of those images through
-     `run_overlapped_frontend` (extraction and matching threads) feeding
-     `IncrementalMapperController(pair_feed=...)` on the caller's thread;
-  8. the descriptor world: a synthetic corridor world (50 images, 0.8 m
+  7. the overlapped front end: the first 30 of those images
+     (`--overlap-images`) through phase 7b's function with the known PINHOLE
+     reader: `run_overlapped_frontend` (extraction and matching threads)
+     feeding `IncrementalMapperController(pair_feed=...)` on the caller's
+     thread;
+ 7b. the reference feature scale, as the JAX package's bench.py runs it
+     with BENCH_REF_SCALE=1 (its default, overlapped branch): the pixel
+     world's trajectory over 100 views (`--ref-images`) rendered at
+     1280x960, f = 1000, through `run_overlapped_frontend` with 8192
+     features, first octave 0, 4 octaves, max image size 1280 (the reader's
+     defaults, as bench.py gives none), the sequential pairs at overlap 5
+     without the quadratic offsets and min_num_inliers 15, feeding
+     `IncrementalMapperController` whose model holds the PINHOLE camera
+     [1000, 1000, 640, 480], with bench.py's MapperOptions and the pose
+     prior of image 1, the launch counts zeroed just before it: keypoints
+     per image, pairs matched and verified, launches, the largest K1 cap
+     and K2 query count, the threads' and the mapper's seconds, frames
+     registered per second (and bench.py's second-half rate), registered
+     count, ATE beside the JAX package's 11.8 mm, scale error, peak memory,
+     BA solves and LM host syncs per solve, the PHASES report; then K2
+     timed at the run's largest query count (the model's points against the
+     map) beside its plain version, the library call and the host kd-tree;
+  8. the descriptor world: a synthetic corridor world (30 images, 0.8 m
      step, ~2 000 keypoints per image plus 5% distractors, each with a
      SIFT-like uint8 descriptor) written to a COLMAP database with no
      matches; `cli.main sequential_matcher --SequentialMatching.overlap 5`
@@ -87,8 +112,9 @@ Phases, each printing its numbers on its own line:
      vote-and-verify scores of every 10th image's top 20, twice on the
      card); vote_and_verify_batch of one query against 20 candidates (on
      the card twice and on the CPU) and build_index at the reference
-     feature cap of 8192 (CUDA events, peak memory); the rig world (a 4-camera rig, 0.3 m lever arms, over 100
-     snapshots of the pixel world's trajectory, 20 000 wall points, 0.5 px
+     feature cap of 8192 (CUDA events, peak memory); the rig world (a
+     4-camera rig, 0.3 m lever arms, over 50 snapshots of the pixel world's
+     trajectory, `--rig-snapshots`; 20 000 wall points, 0.5 px
      noise; rig poses perturbed by 2 cm / 0.5 deg, relative poses by 1 cm /
      0.3 deg) through rig_bundle_adjuster with refined relative poses; and
      ransac_generalized_relative_pose (GR6P) at 2 000 rays with 20%
@@ -112,9 +138,10 @@ Phases, each printing its numbers on its own line:
      the host kd-tree. `--dense-views` keeps the first N registered views;
  13. the sharded paths (colmap_pcd_tpu_torch/parallel) over a mesh of
      every visible card, or of cuda:0 repeated twice on one card: phase 6's
-     database, map and flags through IncrementalMapperController with
-     `mapper.dist_mesh` set (every BA solve distributed; seconds, ba_device
-     and its ba_shard part, K2 launches, reductions per solve, bytes reduced per LM iteration);
+     database cut to its first 30 views, map and flags through
+     IncrementalMapperController with `mapper.dist_mesh` set (every BA solve
+     distributed; seconds, ba_device and its ba_shard part, K2 launches,
+     reductions per solve, bytes reduced per LM iteration) and without it;
      MatchPool over the 100 views' descriptors as floats (cap 1024) and
      the 485 overlap-5 pairs, sharded and unsharded on cuda:0 (float K1
      launches, seconds); run_patch_match_stereo with `mesh=` and
@@ -127,8 +154,11 @@ Phases, each printing its numbers on its own line:
      bundle_adjuster and hierarchical_mapper; the pixel world
      holds 100 images of 300-2 048 keypoints and its model >= 95%
      registered with ATE < 0.10 m and scale error < 2%, and so do the
-     overlapped run (with no error in its feed) and the descriptor world
-     (match precision >= 0.95); classic mapper >= 19/20 registered with
+     overlapped run (with no error in its feed), the reference-scale run
+     (no error in its feed; the uint8 K1 launched at the chunk cap that
+     its largest keypoint count gives, K2 launched by its mapper, its SIFT
+     on the card agreeing with the CPU's in phase 5) and the descriptor
+     world (match precision >= 0.95); classic mapper >= 19/20 registered with
      median reprojection error < 1.0 px; bundle_adjuster keeps every image
      at ATE < 0.10 m and no more than 2 mm above its input's, at least 9 of
      10 images register back, the aligner's median error < 5 mm on its own
@@ -149,15 +179,19 @@ Phases, each printing its numbers on its own line:
      sweep equal to the CPU's, two card runs of the sweep, the splat and the
      mesh byte-identical, a non-empty fused cloud and Poisson mesh within
      their point-to-plane bars, faces in both Delaunay meshes and in the
-     one-click pipeline's mesh; the sharded mapper >= 95% registered at ATE
-     < 0.10 m, scale error < 2% and within 0.02 m of phase 6's ATE, the
+     one-click pipeline's mesh; the sharded mapper and the unsharded one on
+     the same 30 views >= 95% registered at ATE < 0.10 m and scale error
+     < 2%, their ATEs within 0.02 m of each other, the
      sharded MatchPool's (idx, ok) identical to the unsharded pool's, the
      sharded stereo's depth identical to the sequential run's on every
      view.
 
 `--kernels-only` stops after phase 4 (on a corridor map built like the
 pixel world's) and prints no result line: a short first look at a changed
-kernel.
+kernel. `--long-images N` runs phases 1-2 and phase 6 at N views (450 is
+the JAX package's BENCH_450_r5.json length, 16.8 mm there), prints the
+mapper's numbers beside that ATE and holds them to phase 6's bars, and
+prints no result line either.
 
 Any failure raises (non-zero exit, no result line). The last lines are the
 kernels' JSON record, the nvidia-smi line, and
@@ -169,13 +203,14 @@ from __future__ import annotations
 
 import argparse
 import json
+import multiprocessing
 import os
 import shutil
 import subprocess
 import sys
 import tempfile
 import time
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 
 import numpy as np
 
@@ -228,12 +263,28 @@ FUSED_P2P_M, MESH_P2P_M = 0.021757 * 1.25, 0.325843 * 1.25
 PIXEL_W, PIXEL_H, PIXEL_F, PIXEL_STEP = 640, 480, 500.0, 0.8
 PIXEL_FEATURES, PIXEL_OCTAVES = 2048, 3
 REF_W, REF_H, REF_F, REF_FEATURES, REF_OCTAVES = 1280, 960, 1000.0, 8192, 4
+# (width, height, focal, features, octaves) of the JAX bench's two scales
+REF_SCALE = (REF_W, REF_H, REF_F, REF_FEATURES, REF_OCTAVES)
+LIGHT_SCALE = (PIXEL_W, PIXEL_H, PIXEL_F, PIXEL_FEATURES, PIXEL_OCTAVES)
 REFERENCE_ATE_MM = 18.0
+# the JAX package's accuracy at the reference feature scale
+# (BENCH_REFSCALE_r5.json) and on 450 views (BENCH_450_r5.json)
+REFERENCE_REF_SCALE_ATE_MM, REFERENCE_450_ATE_MM = 11.8, 16.8
 # the lidar mapper's options on SIFT features, as that bench sets them
+# (bench.py:184-191), for the controller and for the mapper command
+BENCH_MAPPER_OPTIONS = dict(
+    if_add_lidar_constraint=True, init_image_id1=1, init_image_id2=2, init_min_num_inliers=40,
+    abs_pose_min_num_inliers=12, abs_pose_min_inlier_ratio=0.15, num_ransac_hypotheses=2048,
+    filter_max_reproj_error=6.0,
+)
 PIXEL_MAPPER_FLAGS = (
     "--Mapper.init_min_num_inliers", "40", "--Mapper.abs_pose_min_num_inliers", "12",
     "--Mapper.abs_pose_min_inlier_ratio", "0.15", "--Mapper.filter_max_reproj_error", "6.0",
 )
+
+# phase 13's sharded mapper runs on the pixel world's first 30 views,
+# beside an unsharded run of the same views
+SHARDED_VIEWS = 30
 
 # published peaks of one H100 SXM at its full 700 W (NVIDIA's data sheet):
 # device memory bytes/s, f32 FLOP/s outside the tensor cores, int8 tensor
@@ -574,6 +625,10 @@ def check_match_kernel(rng) -> dict:
         ("pixel-world chunk B=16 cap 1024", dict(B=16, N1=1024, N2=1024, n_lo=430, n_hi=540), 20, 3),
         ("matcher chunk B=16 cap 2048", dict(B=16, N1=2048, N2=2048, n_lo=1500, n_hi=2048), 20, 3),
         ("descriptor-world chunk B=16 cap 4096", dict(B=16, N1=4096, N2=4096, n_lo=1900, n_hi=2200), 10, 2),
+        # the reference-scale world's chunk (its views hold ~740-850
+        # keypoints) and a chunk at the 8192 cap nearly full
+        ("reference-scale chunk B=16 cap 1024", dict(B=16, N1=1024, N2=1024, n_lo=740, n_hi=850), 20, 3),
+        ("chunk B=16 cap 8192", dict(B=16, N1=8192, N2=8192, n_lo=6000, n_hi=8192), 5, 1),
         ("one pair 8192x8192", dict(B=1, N1=8192, N2=8192), 10, 3),
         ("ragged 1000x1537", dict(B=1, N1=1000, N2=1537), 50, 10),
         ("duplicates 1024x2048", dict(B=1, N1=1024, N2=2048, dup=True), 50, 10),
@@ -642,6 +697,9 @@ def _counted(fn, counters: dict):
 
     for wrapper in counters.values():
         wrapper.launches = 0
+        for record in ("max_queries", "max_cap"):  # the largest shapes launched
+            if hasattr(wrapper, record):
+                setattr(wrapper, record, 0)
     t0 = time.perf_counter()
     out = fn()
     torch.cuda.synchronize()
@@ -828,11 +886,19 @@ def check_sift(paths: dict) -> dict:
     ref_valid = [int(n) for n in ref_out[3].sum(-1).tolist()]
     if min(ref_valid) < 500 or not bool(torch.isfinite(ref_out[1][ref_out[3]]).all()):
         raise AssertionError(f"the reference-scale batch extracted {ref_valid} keypoints")
+    ref_peak = torch.cuda.max_memory_allocated()
+    # the batch's first image on the CPU, held to the card's by the same bars
+    t0 = time.perf_counter()
+    ref_cpu = [a[0].numpy() for a in sift.extract_batch(ref_d[:1].cpu(), ref_opts)]
+    ref_cpu_s = time.perf_counter() - t0
+    ref_agree = _sift_agreement([a[0].cpu().numpy() for a in ref_out], ref_cpu)
+    if ref_agree["partner_share"] < SIFT_PARTNER_SHARE or ref_agree["good_share"] < SIFT_GOOD_SHARE:
+        raise AssertionError(f"SIFT at the reference scale on the card and on the CPU disagree: {ref_agree}")
     return {
         "valid": n_valid, "worst": worst, "cpu_seconds": cpu_s, "ms_per_batch": ms,
         "kernels_per_batch": kernels, "peak_mem_bytes": peak,
-        "ref_valid": ref_valid, "ref_ms": start.elapsed_time(end),
-        "ref_peak_mem_bytes": torch.cuda.max_memory_allocated(),
+        "ref_valid": ref_valid, "ref_ms": start.elapsed_time(end), "ref_peak_mem_bytes": ref_peak,
+        "ref_agree": ref_agree, "ref_cpu_seconds": ref_cpu_s,
     }
 
 
@@ -895,67 +961,164 @@ def run_pixel_world(world: dict, tmp: str) -> dict:
     return res
 
 
-def run_overlapped(args, world: dict, tmp: str) -> dict:
-    """Phase 7: extraction and matching threads feeding the mapper on the
-    caller's thread, on the first images of the pixel world."""
+def render_reference_world(n_images: int, tmp: str, scale=REF_SCALE) -> dict:
+    """The reference-scale world's files (bench.py with BENCH_REF_SCALE=1):
+    the pixel world's trajectory over n_images views rendered at 1280x960,
+    f = 1000, or at another `scale` (threaded over images), and its
+    corridor map."""
+    from synthetic_torch import build_corridor_map, make_trajectory, render_images
+
+    t0 = time.perf_counter()
+    gt = make_trajectory(n_images, PIXEL_STEP)
+    img_dir = os.path.join(tmp, "images")
+    os.makedirs(img_dir)
+    render_images(img_dir, gt, *scale[:3], workers=4)
+    pts, nrm = build_corridor_map(np.random.default_rng(0), length=n_images * PIXEL_STEP + 25)
+    return {"gt": gt, "images": img_dir, "map_points": pts, "map_normals": nrm, "scale": scale,
+            "seconds": time.perf_counter() - t0}
+
+
+def run_overlapped_bench(world: dict, tmp: str, pinhole_reader: bool = False) -> dict:
+    """bench.py's default (overlapped) run through the port's entry points,
+    on a world of `render_reference_world`'s form: run_overlapped_frontend
+    with the world's SIFT options, the sequential pairs at overlap 5 without
+    the quadratic offsets and min_num_inliers 15, feeding
+    IncrementalMapperController on the caller's thread, whose model holds
+    the known PINHOLE camera, with bench.py's MapperOptions and the pose
+    prior of image 1. The database's camera comes from the reader's
+    defaults, as bench.py gives none (the matcher verifies with it), or is
+    the known PINHOLE with `pinhole_reader`. Phase 7 runs it on the pixel
+    world's first views with the known reader, phase 7b on the
+    reference-scale world. The model is returned as "rec"."""
     import torch
 
     from colmap_pcd_tpu_torch.models.controllers import ControllerOptions, IncrementalMapperController
     from colmap_pcd_tpu_torch.models.correspondence_graph import CorrespondenceGraph
+    from colmap_pcd_tpu_torch.models.database import Database
     from colmap_pcd_tpu_torch.models.feature_pipeline import ImageReaderConfig
     from colmap_pcd_tpu_torch.models.incremental_mapper import MapperOptions
     from colmap_pcd_tpu_torch.models.lidar_map import LidarMap
     from colmap_pcd_tpu_torch.models.overlap import run_overlapped_frontend
-    from colmap_pcd_tpu_torch.models.reconstruction import Reconstruction
-    from colmap_pcd_tpu_torch.utils.config import SiftMatchingConfig
+    from colmap_pcd_tpu_torch.models.reconstruction import Camera, Reconstruction
+    from colmap_pcd_tpu_torch.utils.config import SiftExtractionConfig, SiftMatchingConfig
     from synthetic_torch import ate_rmse, scale_error
 
-    n = args.overlap_images
-    gt = world["gt"][:n]
-    img_dir = os.path.join(tmp, "overlap_images")
-    os.makedirs(img_dir)
-    for name in sorted(os.listdir(world["paths"]["images"]))[:n]:
-        shutil.copy(os.path.join(world["paths"]["images"], name), img_dir)
+    gt, img_dir = world["gt"], world["images"]
+    W, H, F, features, octaves = world["scale"]
+    database = os.path.join(tmp, "overlapped.db")
+    reader = (ImageReaderConfig(camera_model="PINHOLE", camera_params=f"{F},{F},{W / 2},{H / 2}")
+              if pinhole_reader else ImageReaderConfig())
+    extraction = SiftExtractionConfig(max_num_features=features, first_octave=0, num_octaves=octaves,
+                                      max_image_size=W)
+    opts = MapperOptions(**BENCH_MAPPER_OPTIONS)
     lmap = LidarMap.from_arrays(world["map_points"], world["map_normals"], device="cuda")
-    opts = MapperOptions(
-        if_add_lidar_constraint=True, init_image_id1=1, init_image_id2=2, init_min_num_inliers=40,
-        abs_pose_min_num_inliers=12, abs_pose_min_inlier_ratio=0.15, num_ransac_hypotheses=2048,
-        filter_max_reproj_error=6.0,
-    )
-    reader = ImageReaderConfig(
-        camera_model="PINHOLE", camera_params=f"{PIXEL_F},{PIXEL_F},{PIXEL_W / 2},{PIXEL_H / 2}"
-    )
     kernels = _kernel_counters()
     rec = Reconstruction()
+    rec.add_camera(Camera(1, 1, W, H, np.asarray([F, F, W / 2, H / 2])))
+    reg_times = []  # (registered, seconds since the mapper started) per registration
     _reset_phases()
+    torch.cuda.reset_peak_memory_stats()
 
     def drive():
         feed, t_extract, t_match = run_overlapped_frontend(
-            os.path.join(tmp, "overlap.db"), img_dir, _extraction_config(),
-            SiftMatchingConfig(min_num_inliers=15), reader, overlap=5, quadratic_overlap=False,
+            database, img_dir, extraction, SiftMatchingConfig(min_num_inliers=15), reader, overlap=5,
+            quadratic_overlap=False,
         )
         ctl = IncrementalMapperController(
             rec, CorrespondenceGraph(), opts, ControllerOptions(verbose=False, image_path=img_dir),
             lidar_map=lmap, pose_priors={1: gt[0]}, pair_feed=feed,
         )
+        t0 = time.perf_counter()
+        ctl.callbacks.append(lambda _iid: reg_times.append((rec.num_reg_images, time.perf_counter() - t0)))
         ok = ctl.reconstruct()
+        mapper_s = time.perf_counter() - t0
         t_extract.join(timeout=300)
         t_match.join(timeout=300)
         if t_extract.is_alive() or t_match.is_alive():
             raise RuntimeError("the overlapped front end's threads did not end")
-        return ok, feed
+        return ok, feed, mapper_s
 
-    (ok, feed), seconds, launches = _counted(drive, kernels)
+    (ok, feed, mapper_s), seconds, launches = _counted(drive, kernels)
+    max_q, max_cap = kernels["nn_argmin"].max_queries, kernels["match_top2_u8"].max_cap
     if feed.error is not None:
         raise RuntimeError(f"the overlapped front end failed: {feed.error!r}")
     if not ok:
         raise RuntimeError("the mapper behind the overlapped front end did not initialize")
-    return {
+    db = Database(database)
+    keypoints = [db.read_keypoints(i).shape[0] for i in sorted(db.images())]
+    db_cameras = db.cameras()
+    db.close()
+    # bench.py's steady rate: registrations per second over the second half
+    mid = len(reg_times) // 2
+    steady = ((reg_times[-1][0] - reg_times[mid][0]) / (reg_times[-1][1] - reg_times[mid][1])
+              if len(reg_times) >= 4 and reg_times[-1][1] > reg_times[mid][1] else float("nan"))
+    if max_q <= 0:
+        raise AssertionError("the mapper behind the overlapped front end never launched K2")
+    res = {
         "registered": rec.num_reg_images, "ate_m": ate_rmse(rec, gt), "scale_err": scale_error(rec, gt),
-        "seconds": seconds, "extract_seconds": feed.extract_s, "match_seconds": feed.match_s,
+        "wall_seconds": seconds, "steady_frames_per_s": steady,
+        "extract_seconds": feed.extract_s, "match_seconds": feed.match_s,
         "match_busy_seconds": feed.match_busy_s, "pairs_matched": feed.n_pairs_matched,
-        "pairs_verified": feed.n_pairs_verified, "launches": launches,
+        "pairs_verified": feed.n_pairs_verified, "launches": launches, "keypoints": keypoints,
+        "db_cameras": db_cameras, "camera": rec.cameras[1].params.tolist(), "max_queries": max_q,
+        "max_cap": max_cap, "points": len(rec.points3D), "map_points": world["map_points"].shape[0],
+        "rec": rec,
     }
+    res.update(_mapper_numbers(mapper_s, rec.num_reg_images))
+    return res
+
+
+def _log_reference_scale(rs: dict, reference_ate_mm: float = REFERENCE_REF_SCALE_ATE_MM,
+                         tag: str = "reference scale"):
+    kps, cam = rs["keypoints"], rs["db_cameras"][1]
+    _log(f"[{tag}] {len(kps)} images, {min(kps)}-{max(kps)} keypoints per image; the matcher's "
+         f"camera (the reader's default) {cam['model_id']} {np.round(cam['params'], 3).tolist()}, the "
+         f"mapper's PINHOLE {rs['camera']}")
+    _log(f"[{tag}] {rs['pairs_matched']} pairs matched, {rs['pairs_verified']} verified; launches "
+         f"{rs['launches']} (uint8 K1 at caps up to {rs['max_cap']}, K2 at up to {rs['max_queries']} queries)")
+    _log(f"[{tag}] wall {rs['wall_seconds']:.3f} s; extraction thread {rs['extract_seconds']:.3f} s, "
+         f"matcher thread {rs['match_seconds']:.3f} s of which busy {rs['match_busy_seconds']:.3f} s; mapper "
+         f"{rs['seconds']:.3f} s, {rs['frames_per_s']:.4f} frames registered/s ({rs['steady_frames_per_s']:.4f} "
+         f"over the second half, bench.py's rate)")
+    _log(f"[{tag}] registered {rs['registered']}/{len(kps)}, ATE {rs['ate_m'] * 1e3:.3f} mm (the "
+         f"JAX package recorded {reference_ate_mm} mm at this scale), scale error "
+         f"{rs['scale_err']:.6f}, {rs['points']} points; peak device memory {rs['peak_mem_bytes'] / 2**20:.1f} "
+         f"MiB, {rs['ba_solves']} BA solves, {rs['lm_syncs_per_solve']:.2f} LM host syncs per solve")
+    _log(f"[{tag}] phases (mapper and the matcher thread):\n" + rs["phases"])
+
+
+def _require_reference_scale(rs: dict, n_images: int):
+    """Phase 7b's bars: the pixel world's, and both kernels launched."""
+    _require_model("reference scale", rs, n_images)
+    if rs["launches"]["match_top2_u8"] <= 0 or rs["launches"]["nn_argmin"] <= 0:
+        raise AssertionError(f"reference scale: launches {rs['launches']}")
+    # the chunk cap is the power of two at or above the largest keypoint
+    # count of the chunk's images: the run's largest must have launched
+    want = 1 << max(6, int(np.ceil(np.log2(max(rs["keypoints"])))))
+    if rs["max_cap"] != want:
+        raise AssertionError(f"reference scale: the uint8 K1's largest cap {rs['max_cap']}, not {want}")
+
+
+def run_long(args, world: dict, tmp: str) -> int:
+    """--long-images: phase 6 at args.n_images views, its numbers and bars;
+    no result line."""
+    import torch
+
+    px = run_pixel_world(world, tmp)
+    kps = px["keypoints"]
+    _log(f"[long] {len(kps)} views rendered in {world['seconds']:.2f} s; feature_extractor "
+         f"{px['extract_seconds']:.3f} s, {min(kps)}-{max(kps)} keypoints per image; sequential matcher "
+         f"{px['matcher_seconds']:.3f} s, {px['pairs_verified']} of {px['pairs_tried']} pairs verified")
+    _log(f"[long] mapper: registered {px['registered']}/{args.n_images} in {px['models']} model(s), ATE "
+         f"{px['ate_m'] * 1e3:.3f} mm (the JAX package recorded {REFERENCE_450_ATE_MM} mm on 450 views), "
+         f"scale error {px['scale_err']:.6f}; {px['seconds']:.3f} s (cli.main), {px['frames_per_s']:.4f} frames "
+         f"registered/s, K2 launches {px['mapper_launches']['nn_argmin']}, peak device memory "
+         f"{px['peak_mem_bytes'] / 2**20:.1f} MiB (max allocated since {torch.cuda.memory_allocated() / 2**20:.1f} "
+         f"MiB were held), {px['ba_solves']} BA solves, {px['lm_syncs_per_solve']:.2f} LM host syncs per solve")
+    _log("[long] mapper phases:\n" + px["phases"])
+    _require_model(f"{args.n_images} views", px, args.n_images)
+    _log(f"[long] phases 1-2 and 6 at {args.n_images} views passed; no result line")
+    return 0
 
 
 def run_descriptor_world(args, tmp: str, rng) -> dict:
@@ -1155,15 +1318,17 @@ def _leaf_sizes(database: str, leaf_max: int, overlap: int) -> list:
     return sorted((len(c) for c in cluster_images(graph, ids, opts)), reverse=True)
 
 
-def _k2_model_queries(rec, map_points: np.ndarray) -> dict:
-    """K2 at the bundle adjuster's shape: every point of the model against
-    the map, as `BundleAdjustmentController` queries them."""
+def _k2_model_queries(rec, map_points: np.ndarray, Q: int | None = None) -> dict:
+    """K2 timed with a model's points as queries against the map: every
+    point, as `BundleAdjustmentController` queries them, or Q of them
+    (repeated in turn where the model holds fewer)."""
     import torch
 
     from colmap_pcd_tpu_torch.ops import nn_kernel
     from colmap_pcd_tpu_torch.utils.native import NativeKdTree
 
     q = np.stack([p.xyz for p in rec.points3D.values()]).astype(np.float32)
+    q = np.resize(q, (Q or q.shape[0], 3))
     map_pts = np.ascontiguousarray(map_points, np.float32)
     pts_d = torch.as_tensor(map_pts, device="cuda")
     shape = _k2_shape(q, map_pts, pts_d, nn_kernel.pack_points(pts_d), NativeKdTree(map_pts))
@@ -2044,34 +2209,58 @@ def _smoke_mesh():
     return make_mesh(2, devices=["cuda:0"] * 2), "cuda:0 repeated twice (one card)"
 
 
+def _first_views_database(src: str, dst: str, n: int):
+    """A copy of a database holding its images 1..n and the pairs among them."""
+    import sqlite3
+
+    from colmap_pcd_tpu_torch.models.database import MAX_IMAGE_ID
+
+    with sqlite3.connect(src) as a, sqlite3.connect(dst) as b:
+        a.backup(b)
+    con = sqlite3.connect(dst)
+    for table in ("images", "keypoints", "descriptors"):
+        con.execute(f"DELETE FROM {table} WHERE image_id > ?", (n,))
+    for table in ("matches", "two_view_geometries"):  # pair ids end in the larger image id
+        con.execute(f"DELETE FROM {table} WHERE pair_id % ? > ?", (MAX_IMAGE_ID, n))
+    con.commit()
+    con.close()
+
+
 def _sharded_mapper(world: dict, mesh, tmp: str) -> dict:
-    """The pixel world's lidar mapper (phase 6's database, map, prior and
-    flags) through IncrementalMapperController with every BA solve
-    distributed over the mesh."""
+    """The pixel world's lidar mapper (phase 6's map, prior and flags) on a
+    copy of phase 6's database cut to its first SHARDED_VIEWS images, through
+    IncrementalMapperController with every BA solve distributed over the
+    mesh, and the same without the mesh."""
     import torch
 
     from colmap_pcd_tpu_torch import cli, device
     from colmap_pcd_tpu_torch.utils.logging_utils import PHASES
     from synthetic_torch import mapper_argv
 
-    out_dir = os.path.join(tmp, "sharded_model")
-    ctl = cli.mapper_controller(mapper_argv(world["paths"], out_dir, *PIXEL_MAPPER_FLAGS)[1:],
-                                device.resolve("cuda"))
-    ctl.mapper.dist_mesh = mesh
-    _reset_phases()
-    torch.cuda.reset_peak_memory_stats()
-    manager, seconds, launches = _counted(ctl.run, _kernel_counters())
-    manager.write(out_dir)
-    res = _read_model(out_dir, world["gt"])
-    res.update(_mapper_numbers(seconds, res["registered"]))
+    n_views = SHARDED_VIEWS
+    paths = dict(world["paths"], database=os.path.join(tmp, "sharded_views.db"))
+    _first_views_database(world["paths"]["database"], paths["database"], n_views)
+    runs = {}
+    for label, mesh_ in (("unsharded", None), ("sharded", mesh)):
+        out_dir = os.path.join(tmp, f"{label}_model")
+        ctl = cli.mapper_controller(mapper_argv(paths, out_dir, *PIXEL_MAPPER_FLAGS)[1:], device.resolve("cuda"))
+        ctl.mapper.dist_mesh = mesh_
+        _reset_phases()
+        torch.cuda.reset_peak_memory_stats()
+        manager, seconds, launches = _counted(ctl.run, _kernel_counters())
+        manager.write(out_dir)
+        res = _read_model(out_dir, world["gt"][:n_views])
+        res.update(_mapper_numbers(seconds, res["registered"]), launches=launches,
+                   ba_device_s=PHASES.totals.get("ba_device", 0.0))
+        runs[label] = res
+    res = runs["sharded"]
     # the distributed solves are the `ba_device` phases; each reduces its
     # initial cost, then per LM iteration (dense tier) its system and cost
     solves = PHASES.counts.get("ba_device", 0)
     reductions = PHASES.counts.get("ba_reductions", 0)
     iterations = max((reductions - solves) / 2, 1)
-    res.update(launches=launches, dist_solves=solves, ba_device_s=PHASES.totals.get("ba_device", 0.0),
-               ba_shard_s=PHASES.totals.get("ba_shard", 0.0),
-               reductions_per_solve=reductions / max(solves, 1),
+    res.update(views=n_views, unsharded=runs["unsharded"], dist_solves=solves,
+               ba_shard_s=PHASES.totals.get("ba_shard", 0.0), reductions_per_solve=reductions / max(solves, 1),
                bytes_per_iteration=(PHASES.counts.get("ba_reduced_bytes", 0) - 4 * solves) / iterations)
     return res
 
@@ -2144,12 +2333,13 @@ def run_sharded(args, world: dict, st: dict, tmp: str) -> dict:
     return res
 
 
-def _require_sharded(sh: dict, px: dict, n_images: int):
+def _require_sharded(sh: dict):
     """Phase 13's bars (PERF.md section 2)."""
-    m = sh["mapper"]
-    _require_model("pixel world, sharded BA", m, n_images)
-    if not abs(m["ate_m"] - px["ate_m"]) < 0.02:
-        raise AssertionError(f"sharded BA: ATE {m['ate_m']} m against phase 6's {px['ate_m']} m")
+    m, u = sh["mapper"], sh["mapper"]["unsharded"]
+    _require_model("pixel world, sharded BA", m, m["views"])
+    _require_model("pixel world, the same views unsharded", u, m["views"])
+    if not abs(m["ate_m"] - u["ate_m"]) < 0.02:
+        raise AssertionError(f"sharded BA: ATE {m['ate_m']} m against {u['ate_m']} m unsharded")
     if m["dist_solves"] <= 0 or m["reductions_per_solve"] < 3:
         raise AssertionError(f"sharded BA: {m['dist_solves']} solves, {m['reductions_per_solve']} reductions each")
     p = sh["pool"]
@@ -2176,19 +2366,25 @@ def _require_model(label: str, res: dict, n_images: int):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n-images", type=int, default=100, help="depth of the pixel world")
-    # 50, not 100: the whole run must stay near half its 1200 s limit now
-    # that phase 10 runs too (PERF.md section 4)
-    ap.add_argument("--descriptor-images", type=int, default=50)
+    # 30 descriptor images, 50 rig snapshots and 30 sharded mapper views pay
+    # for the reference-scale phase: the whole run took 706 s of its 1200 s
+    # limit on one H100 at 700 W (PERF.md sections 4 and 5)
+    ap.add_argument("--descriptor-images", type=int, default=30)
     ap.add_argument("--overlap-images", type=int, default=30)
+    ap.add_argument("--ref-images", type=int, default=100, help="depth of the reference-scale world")
     ap.add_argument("--classic-images", type=int, default=20)
-    ap.add_argument("--rig-snapshots", type=int, default=100, help="depth of the rig world")
+    ap.add_argument("--rig-snapshots", type=int, default=50, help="depth of the rig world")
     ap.add_argument("--rig-points", type=int, default=20000)
     ap.add_argument("--dense-views", type=int, default=None,
-                    help="registered views kept in phase 12's workspace (default: all)")
+                    help="registered views kept in phase 12's workspace")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after the kernel checks of phases 3 and 4; no result line")
+    ap.add_argument("--long-images", type=int, default=0,
+                    help="run phases 1-2 and phase 6 at this many views, then stop; no result line")
     args = ap.parse_args(argv)
+    if args.long_images:
+        args.n_images = args.long_images
 
     import torch
 
@@ -2207,8 +2403,16 @@ def main(argv=None) -> int:
     _log(f"[env] torch {torch.__version__} cuda {torch.version.cuda} device {kind} "
          f"count {torch.cuda.device_count()}")
 
+    t_start = time.perf_counter()
+
+    def clock(phase: str):
+        _log(f"[clock] {phase} starts at {time.perf_counter() - t_start:.1f} s")
+
+    # the reference-scale world renders in a process of its own: rendering
+    # threads in this one would hold the interpreter lock against phases 5-7
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp, \
-            ThreadPoolExecutor(max_workers=4) as pool:
+            ThreadPoolExecutor(max_workers=4) as pool, \
+            ProcessPoolExecutor(max_workers=1, mp_context=multiprocessing.get_context("spawn")) as procs:
         # 2. build: one nvcc per source, started together, while the host
         # renders the pixel world
         t0 = time.perf_counter()
@@ -2234,6 +2438,8 @@ def main(argv=None) -> int:
             return 0
 
         world = rendering.result()
+        if args.long_images:
+            return run_long(args, world, tmp)
         _log(f"[pixel world] {args.n_images} views at {PIXEL_W}x{PIXEL_H} and 4 at {REF_W}x{REF_H} "
              f"rendered, {world['map_points'].shape[0]} map points written, in {world['seconds']:.2f} s "
              f"(host, beside the build)")
@@ -2244,8 +2450,12 @@ def main(argv=None) -> int:
             np.random.default_rng(args.seed + 1),
         )
         k1 = check_match_kernel(np.random.default_rng(args.seed + 2))
+        # the reference-scale world renders on the host while phases 5-7 run
+        os.makedirs(os.path.join(tmp, "reference"))
+        ref_rendering = procs.submit(render_reference_world, args.ref_images, os.path.join(tmp, "reference"))
 
         # 5. SIFT on the card
+        clock("phase 5")
         sf = check_sift(world["paths"])
         w = sf["worst"]
         _log(f"[sift] batch of 8 at {PIXEL_W}x{PIXEL_H}, {PIXEL_FEATURES} features, {PIXEL_OCTAVES} octaves: "
@@ -2260,8 +2470,13 @@ def main(argv=None) -> int:
              f"{REF_OCTAVES} octaves: {sf['ref_ms']:.3f} ms (one call), "
              f"{min(sf['ref_valid'])}-{max(sf['ref_valid'])} keypoints per image, peak device memory "
              f"{sf['ref_peak_mem_bytes'] / 2**20:.1f} MiB")
+        ra = sf["ref_agree"]
+        _log(f"[sift] reference scale, its first image against the CPU ({sf['ref_cpu_seconds']:.2f} s there): "
+             f"{ra['valid'][0]} and {ra['valid'][1]} keypoints, partners {ra['partner_share']:.4f} (within "
+             f"{ra['max_px']:.2g} px), same orientation and cosine >= {SIFT_COS}: {ra['good_share']:.4f}")
 
         # 6. the pixel world
+        clock("phase 6")
         px = run_pixel_world(world, tmp)
         kps = px["keypoints"]
         _log(f"[pixels] feature_extractor: {len(kps)} images in {px['extract_seconds']:.3f} s "
@@ -2279,16 +2494,36 @@ def main(argv=None) -> int:
         _log("[pixels] mapper phases:\n" + px["phases"])
 
         # 7. the overlapped front end
-        os.makedirs(os.path.join(tmp, "overlap"))
-        ov = run_overlapped(args, world, os.path.join(tmp, "overlap"))
-        _log(f"[overlap] {args.overlap_images} images: registered {ov['registered']}, ATE "
-             f"{ov['ate_m'] * 1e3:.3f} mm, scale error {ov['scale_err']:.6f}; wall {ov['seconds']:.3f} s, "
+        clock("phase 7")
+        n = args.overlap_images
+        img_dir = os.path.join(tmp, "overlap", "images")
+        os.makedirs(img_dir)
+        for name in sorted(os.listdir(world["paths"]["images"]))[:n]:
+            shutil.copy(os.path.join(world["paths"]["images"], name), img_dir)
+        ov = run_overlapped_bench({"gt": world["gt"][:n], "images": img_dir, "map_points": world["map_points"],
+                                   "map_normals": world["map_normals"], "scale": LIGHT_SCALE},
+                                  os.path.join(tmp, "overlap"), pinhole_reader=True)
+        _log(f"[overlap] {n} images: registered {ov['registered']}, ATE {ov['ate_m'] * 1e3:.3f} mm, scale "
+             f"error {ov['scale_err']:.6f}; wall {ov['wall_seconds']:.3f} s, mapper {ov['seconds']:.3f} s, "
              f"extraction thread {ov['extract_seconds']:.3f} s, matcher thread "
              f"{ov['match_seconds']:.3f} s of which busy {ov['match_busy_seconds']:.3f} s, "
              f"{ov['pairs_matched']} pairs matched, {ov['pairs_verified']} verified; launches "
              f"{ov['launches']}")
 
+        # 7b. the reference feature scale, overlapped
+        ref = ref_rendering.result()
+        _log(f"[reference scale] {args.ref_images} views at {REF_W}x{REF_H}, f = {REF_F:g}, rendered and "
+             f"{ref['map_points'].shape[0]} map points built in {ref['seconds']:.2f} s (host, beside phases 5-7)")
+        clock("phase 7b")
+        os.makedirs(os.path.join(tmp, "reference_run"))
+        rf = run_overlapped_bench(ref, os.path.join(tmp, "reference_run"))
+        _log_reference_scale(rf)
+        # K2 at the run's largest query count, the model's points as queries
+        # (the largest call is the whole-model association)
+        rf["k2_shape"] = _k2_model_queries(rf["rec"], ref["map_points"], rf["max_queries"])
+
         # 8. the descriptor world
+        clock("phase 8")
         os.makedirs(os.path.join(tmp, "main"))
         res = run_descriptor_world(args, os.path.join(tmp, "main"), np.random.default_rng(args.seed))
         pr = res["match"]
@@ -2308,6 +2543,7 @@ def main(argv=None) -> int:
         _log("[mapper] phases:\n" + res["phases"])
 
         # 9. the classic path
+        clock("phase 9")
         os.makedirs(os.path.join(tmp, "classic"))
         cl = run_classic_path(args, os.path.join(tmp, "classic"))
         _log(f"[classic] registered {cl['registered']}/{args.classic_images}, median reprojection "
@@ -2318,6 +2554,7 @@ def main(argv=None) -> int:
              f"(K1 launches {cl['guided_launches']['match_top2']} float)")
 
         # 10. the SfM tools on the pixel world's model and database
+        clock("phase 10")
         os.makedirs(os.path.join(tmp, "tools"))
         st = run_sfm_tools(args, world, px, os.path.join(tmp, "tools"))
         cmds = st["commands"]
@@ -2348,6 +2585,7 @@ def main(argv=None) -> int:
              f"{pcg['max_t_err_m']:.4f} m, peak device memory {pcg['peak_mem_bytes'] / 2**20:.1f} MiB")
 
         # 11. retrieval and camera rigs
+        clock("phase 11")
         os.makedirs(os.path.join(tmp, "retrieval"))
         ph = run_retrieval_and_rigs(args, world, os.path.join(tmp, "retrieval"))
         rt = ph["retrieval"]
@@ -2394,6 +2632,7 @@ def main(argv=None) -> int:
              f"{g6['t_err_m']:.3g} m, inlier share {g6['inlier_share']:.4f}")
 
         # 12. dense reconstruction on phase 10's undistorted workspace
+        clock("phase 12")
         os.makedirs(os.path.join(tmp, "dense"))
         args.dense_views = args.dense_views or args.n_images
         dn = run_dense(args, world, st, os.path.join(tmp, "dense"))
@@ -2436,11 +2675,16 @@ def main(argv=None) -> int:
              f"{k2f['max_rel_vs_kdtree']:.3g}")
 
         # 13. the sharded paths over a mesh of devices
+        clock("phase 13")
         sh = run_sharded(args, world, st, tmp)
         m = sh["mapper"]
-        _log(f"[sharded] pixel world mapper, every BA solve distributed over the mesh: registered "
-             f"{m['registered']}/{args.n_images}, ATE {m['ate_m'] * 1e3:.3f} mm (phase 6: "
-             f"{px['ate_m'] * 1e3:.3f} mm), scale error {m['scale_err']:.6f}; {m['seconds']:.3f} s, ba_device "
+        u = m["unsharded"]
+        _log(f"[sharded] pixel world mapper on its first {m['views']} views, unsharded: registered "
+             f"{u['registered']}, ATE {u['ate_m'] * 1e3:.3f} mm, {u['seconds']:.3f} s, ba_device "
+             f"{u['ba_device_s']:.3f} s, K2 launches {u['launches']['nn_argmin']}")
+        _log(f"[sharded] the same, every BA solve distributed over the mesh: registered "
+             f"{m['registered']}/{m['views']}, ATE {m['ate_m'] * 1e3:.3f} mm, scale error "
+             f"{m['scale_err']:.6f}; {m['seconds']:.3f} s, ba_device "
              f"{m['ba_device_s']:.3f} s over {m['dist_solves']} distributed solves (of it sharding and upload, "
              f"ba_shard, {m['ba_shard_s']:.3f} s), K2 launches "
              f"{m['launches']['nn_argmin']}, {m['reductions_per_solve']:.2f} reductions per solve, "
@@ -2461,10 +2705,12 @@ def main(argv=None) -> int:
     # 14. checks
     u8_launches = {"pixel world": px["matcher_launches"]["match_top2_u8"],
                    "overlapped": ov["launches"]["match_top2_u8"],
+                   "reference scale": rf["launches"]["match_top2_u8"],
                    "descriptor world": res["matcher_launches"]["match_top2_u8"],
                    "classic world": cl["matcher_launches"]["match_top2_u8"]}
     k2_launches = {"pixel world": px["mapper_launches"]["nn_argmin"],
                    "overlapped": ov["launches"]["nn_argmin"],
+                   "reference scale": rf["launches"]["nn_argmin"],
                    "descriptor world": res["mapper_launches"]["nn_argmin"],
                    "bundle_adjuster": cmds["bundle_adjuster"]["launches"]["nn_argmin"],
                    "hierarchical_mapper": cmds["hierarchical_mapper"]["launches"]["nn_argmin"],
@@ -2494,6 +2740,7 @@ def main(argv=None) -> int:
         raise AssertionError(f"pixel world: cameras {cam}")
     _require_model("pixel world", px, args.n_images)
     _require_model("overlapped front end", ov, args.overlap_images)
+    _require_reference_scale(rf, args.ref_images)
     _require_model("descriptor world", res, args.descriptor_images)
     if not pr["precision"] >= 0.95:
         raise AssertionError(f"match precision {pr['precision']} < 0.95")
@@ -2504,7 +2751,7 @@ def main(argv=None) -> int:
     _require_sfm_tools(st, px, args.n_images)
     _require_retrieval_and_rigs(ph, args.n_images)
     _require_dense(dn)
-    _require_sharded(sh, px, args.n_images)
+    _require_sharded(sh)
 
     def entry(name, source, line, launches, rec, **more):
         return {
@@ -2518,10 +2765,13 @@ def main(argv=None) -> int:
     # `launches` is the pixel world's count (the guided matcher's for the
     # float K1, which no other path runs); the other paths' stand beside it
     k2["shapes"][f"Q={st['ba_queries']} N={world['map_points'].shape[0]} (bundle_adjuster)"] = st["k2_ba_shape"]
+    k2["shapes"][f"Q={rf['max_queries']} N={rf['map_points']} (reference scale, the run's largest)"] = \
+        rf["k2_shape"]
     k2f = dn["k2_fused"]
     k2["shapes"][f"Q={k2f['Q']} N={k2f['N']} (fused cloud, point-to-plane)"] = {
         **{k: k2f[k] for k in ("ms", "device_ms", "host_kdtree_ms", "bound_ms", "bound_by")},
         "plain_ms": None, "library_ms": None}
+    clock("the result")
     print(json.dumps({"kernels": [
         entry("nn_argmin", "nn_argmin.cu", 191, k2_launches["pixel world"], k2,
               launches_by_path=k2_launches),

@@ -267,7 +267,8 @@ def match_top2_u8(d1, d2, inv1, inv2, valid2, valid1=None):
     valid row cost nothing.
 
     CUDA tensors launch the tensor-core kernel (counted in
-    `match_top2_u8.launches`); CPU tensors take the plain version. Raises on
+    `match_top2_u8.launches`, the largest of N1 and N2 in
+    `match_top2_u8.max_cap`); CPU tensors take the plain version. Raises on
     anything else."""
     _check_u8(d1, d2, inv1, inv2, valid2, valid1)
     dev = d1.device
@@ -283,6 +284,7 @@ def match_top2_u8(d1, d2, inv1, inv2, valid2, valid1=None):
     out = launch_u8(build_u8(), d1, d2, inv1, inv2, valid2, valid1)
     with _lock:
         match_top2_u8.launches += 1
+        match_top2_u8.max_cap = max(match_top2_u8.max_cap, d1.shape[1], d2.shape[1])
     return out
 
 
@@ -317,3 +319,4 @@ def launch_u8(lib: ctypes.CDLL, d1, d2, inv1, inv2, valid2, valid1=None):
 
 
 match_top2_u8.launches = 0
+match_top2_u8.max_cap = 0

@@ -137,8 +137,9 @@ def nn_argmin(queries: Tensor, points: Tensor) -> tuple[Tensor, Tensor]:
     `points` is [N,3] or, saving the repack on every call, `pack_points`'s
     [N,4].
 
-    CUDA tensors launch the hand kernel (counted in `nn_argmin.launches`);
-    CPU tensors take the plain version. Raises on anything else."""
+    CUDA tensors launch the hand kernel (counted in `nn_argmin.launches`,
+    the largest query count in `nn_argmin.max_queries`); CPU tensors take
+    the plain version. Raises on anything else."""
     _check("queries", queries)
     _check("points", points, (3, 4))
     if queries.device != points.device:
@@ -163,7 +164,9 @@ def nn_argmin(queries: Tensor, points: Tensor) -> tuple[Tensor, Tensor]:
     lib = build()
     out = launch(lib, queries, points, launch_plan(Q, N, sm_count(dev), lib.tiles))
     nn_argmin.launches += 1
+    nn_argmin.max_queries = max(nn_argmin.max_queries, Q)
     return out
 
 
 nn_argmin.launches = 0
+nn_argmin.max_queries = 0
