@@ -51,7 +51,15 @@ Phases, each printing its numbers on its own line:
      intrinsics), the sequential matcher at overlap 5 without the quadratic
      offsets (match_top2_u8) and `cli.main mapper` on the lidar map (K2)
      with the pose prior of image 1, each with the launch counts zeroed just
-     before it; the model is read back and its ATE printed;
+     before it, writing a snapshot every 25 registrations; the model is
+     read back and its ATE printed;
+ 6b. resume: `cli.main mapper --input_path` from the snapshot nearest half
+     of the views (by its registered count read back), with phase 6's
+     database, map, pose prior and flags, to the end (K2): snapshot and
+     resumed counts, ATE beside phase 6's, scale error, seconds, K2
+     launches and largest query count, peak memory; then
+     depth_project_batch over 8 of the resumed model's views, each over the
+     map points in its frustum, on the card against the CPU;
   7. the overlapped front end: the first 30 of those images
      (`--overlap-images`) through phase 7b's function with the known PINHOLE
      reader: `run_overlapped_frontend` (extraction and matching threads)
@@ -151,9 +159,11 @@ Phases, each printing its numbers on its own line:
      vocab_tree_matcher and the loop-detecting sequential matcher
      included), match_top2 by the guided matcher and the sharded
      MatchPool, K2 by every lidar mapper run (the sharded one included),
-     bundle_adjuster and hierarchical_mapper; the pixel world
-     holds 100 images of 300-2 048 keypoints and its model >= 95%
-     registered with ATE < 0.10 m and scale error < 2%, and so do the
+     bundle_adjuster, hierarchical_mapper and the resumed mapper; the pixel
+     world holds 100 images of 300-2 048 keypoints and its model >= 95%
+     registered with ATE < 0.10 m and scale error < 2%, and so does the
+     resumed model (with more images than its snapshot; depth_project_batch
+     on the card finding the CPU's features, depths within 1e-5 m), and the
      overlapped run (with no error in its feed), the reference-scale run
      (no error in its feed; the uint8 K1 launched at the chunk cap that
      its largest keypoint count gives, K2 launched by its mapper, its SIFT
@@ -281,6 +291,12 @@ PIXEL_MAPPER_FLAGS = (
     "--Mapper.init_min_num_inliers", "40", "--Mapper.abs_pose_min_num_inliers", "12",
     "--Mapper.abs_pose_min_inlier_ratio", "0.15", "--Mapper.filter_max_reproj_error", "6.0",
 )
+
+# phase 6's mapper writes a snapshot every SNAPSHOT_FREQ registrations; the
+# resume phase starts from the one nearest half of the views. Its check of
+# depth_project_batch holds the card's depths to the CPU's within DEPTH_ATOL_M
+SNAPSHOT_FREQ = 25
+DEPTH_ATOL_M = 1e-5
 
 # phase 13's sharded mapper runs on the pixel world's first 30 views,
 # beside an unsharded run of the same views
@@ -950,14 +966,116 @@ def run_pixel_world(world: dict, tmp: str) -> dict:
     _reset_phases()
     torch.cuda.reset_peak_memory_stats()
     out_dir = os.path.join(tmp, "pixel_model")
-    rc, seconds, launches = _run_cli(mapper_argv(paths, out_dir, *PIXEL_MAPPER_FLAGS), kernels)
+    # the snapshots the resume phase starts from (a model every 25 registrations)
+    snapshots = os.path.join(tmp, "pixel_snapshots")
+    rc, seconds, launches = _run_cli(mapper_argv(
+        paths, out_dir, *PIXEL_MAPPER_FLAGS, "--Mapper.snapshot_path", snapshots,
+        "--Mapper.snapshot_images_freq", str(SNAPSHOT_FREQ)), kernels)
     if rc != 0:
         raise RuntimeError(f"mapper (pixel world) exited with {rc}")
     res = _read_model(out_dir, world["gt"])
     res.update(_mapper_numbers(seconds, res["registered"]))
     res.update(keypoints=keypoints, cameras=cameras, extract_seconds=e_seconds,
                matcher_seconds=m_seconds, matcher_launches=m_launches, pairs_verified=n_verified,
-               pairs_tried=n_tried, mapper_launches=launches, model_root=out_dir)
+               pairs_tried=n_tried, mapper_launches=launches, model_root=out_dir, snapshot_root=snapshots)
+    return res
+
+
+def _depth_project_batch_check(model: str, world: dict, n_views: int = 8) -> dict:
+    """depth_project_batch over n_views registered views of `model`, each
+    over the map points in its frustum (to choose_meter), on the card and
+    on the CPU: `found` must be equal and the chosen points' distances to
+    the camera centre (the depth the z-buffer keeps) within DEPTH_ATOL_M."""
+    import torch
+
+    from colmap_pcd_tpu_torch import device
+    from colmap_pcd_tpu_torch.models.lidar_map import LidarMap
+    from colmap_pcd_tpu_torch.models.reconstruction import Reconstruction
+    from colmap_pcd_tpu_torch.ops import pointcloud as pc
+    from colmap_pcd_tpu_torch.ops import se3
+
+    rec = Reconstruction.read(model)
+    ids = sorted(rec.registered_ids)
+    ids = [ids[k] for k in np.linspace(0, len(ids) - 1, n_views).round().astype(int)]
+    cam = rec.cameras[rec.images[ids[0]].camera_id]
+    opts = pc.ProjOptions()
+    # the map in the frame the mapper holds it in (LidarMap.load converts it)
+    lmap = LidarMap.load(world["paths"]["lidar"], opts, device="cpu")
+    pts, nrm = torch.as_tensor(lmap.points), torch.as_tensor(lmap.normals)
+    q = torch.as_tensor(np.stack([rec.images[i].qvec for i in ids]), dtype=torch.float32)
+    t = torch.as_tensor(np.stack([rec.images[i].tvec for i in ids]), dtype=torch.float32)
+    fx, fy, cx, cy = (float(v) for v in cam.params[:4])
+    sets = [torch.nonzero(pc.points_in_frustum(pc.frustum_planes(
+        q[b], t[b], fx, fy, cx, cy, cam.width, cam.height, opts.choose_meter), pts))[:, 0]
+        for b in range(n_views)]
+    F, M = max(len(rec.images[i].xys) for i in ids), max(len(s) for s in sets)
+    xy, fv = torch.zeros(n_views, F, 2), torch.zeros(n_views, F)
+    cp, cn, cv = torch.zeros(n_views, M, 3), torch.zeros(n_views, M, 3), torch.zeros(n_views, M)
+    for b, (i, sel) in enumerate(zip(ids, sets)):
+        k = len(rec.images[i].xys)
+        xy[b, :k], fv[b, :k] = torch.as_tensor(rec.images[i].xys, dtype=torch.float32), 1.0
+        cp[b, : len(sel)], cn[b, : len(sel)], cv[b, : len(sel)] = pts[sel], nrm[sel], 1.0
+    params = torch.zeros(n_views, 12)
+    params[:, : len(cam.params)] = torch.as_tensor(cam.params, dtype=torch.float32)
+    args = (xy, fv, cp, cn, cv, q, t, params)
+    dev = device.resolve("cuda")
+    t0 = time.perf_counter()
+    cpu = pc.depth_project_batch(*args, cam.width, cam.height, cam.model_id, opts)
+    cpu_s = time.perf_counter() - t0
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    card_args = [a.to(dev) for a in args]
+    start.record()
+    card = pc.depth_project_batch(*card_args, cam.width, cam.height, cam.model_id, opts)
+    end.record()
+    torch.cuda.synchronize()
+    card = [a.cpu() for a in card]
+    if not torch.equal(card[2], cpu[2]) or int(cpu[2].sum()) == 0:
+        raise AssertionError(f"depth_project_batch: the card found {int(card[2].sum())} features, "
+                             f"the CPU {int(cpu[2].sum())}, not the same ones")
+
+    def depth(points):  # distance to the camera centre of each view's chosen points
+        return torch.linalg.norm(se3.se3_apply(q[:, None], t[:, None], points), dim=-1)
+
+    found = cpu[2]
+    err = (depth(card[0]) - depth(cpu[0]))[found].abs().max().item()
+    if not err <= DEPTH_ATOL_M:
+        raise AssertionError(f"depth_project_batch: depths on the card and the CPU differ by {err} m")
+    return {"views": ids, "features": F, "candidates": [len(s) for s in sets], "found": int(found.sum()),
+            "points_differ": int((card[0] != cpu[0]).any(-1)[found].sum()), "depth_err_m": err,
+            "card_ms": start.elapsed_time(end), "cpu_seconds": cpu_s}
+
+
+def run_resume(world: dict, px: dict, tmp: str) -> dict:
+    """The resume phase: `cli.main mapper --input_path` from the snapshot of
+    phase 6's run that holds about half of the views (chosen by the
+    registered count read back from each snapshot, not by folder name:
+    snapshots written in one second share a name), with phase 6's database,
+    map, pose prior and flags, to the end; then depth_project_batch on the
+    card against the CPU over 8 of the resumed model's views."""
+    import torch
+
+    from colmap_pcd_tpu_torch.models.reconstruction import Reconstruction
+    from colmap_pcd_tpu_torch.ops import nn_kernel
+    from synthetic_torch import mapper_argv
+
+    root = px["snapshot_root"]
+    snaps = {d: Reconstruction.read(os.path.join(root, d)).num_reg_images for d in sorted(os.listdir(root))}
+    half = len(world["gt"]) / 2
+    start = min(snaps, key=lambda d: (abs(snaps[d] - half), d))
+    model = os.path.join(root, start)
+    kernels = _kernel_counters()
+    _reset_phases()
+    torch.cuda.reset_peak_memory_stats()
+    out_dir = os.path.join(tmp, "resumed_model")
+    rc, seconds, launches = _run_cli(
+        mapper_argv(world["paths"], out_dir, *PIXEL_MAPPER_FLAGS, "--input_path", model), kernels)
+    if rc != 0:
+        raise RuntimeError(f"mapper --input_path exited with {rc}")
+    res = _read_model(out_dir, world["gt"])
+    res.update(_mapper_numbers(seconds, res["registered"] - snaps[start]))
+    res.update(snapshots=sorted(snaps.values()), snapshot_registered=snaps[start], launches=launches,
+               max_queries=nn_kernel.nn_argmin.max_queries)
+    res["depth_project_batch"] = _depth_project_batch_check(os.path.join(out_dir, "0"), world)
     return res
 
 
@@ -2493,6 +2611,23 @@ def main(argv=None) -> int:
              f"{px['lm_syncs_per_solve']:.2f} LM host syncs per solve")
         _log("[pixels] mapper phases:\n" + px["phases"])
 
+        # 6b. resume the mapper from phase 6's snapshot of about half the views
+        clock("phase 6b")
+        resumed = run_resume(world, px, tmp)
+        _log(f"[resume] snapshots of phase 6's run hold {resumed['snapshots']} registered images; "
+             f"mapper --input_path from the one of {resumed['snapshot_registered']}: registered "
+             f"{resumed['registered']}/{args.n_images}, ATE {resumed['ate_m'] * 1e3:.3f} mm (phase 6 in this run: "
+             f"{px['ate_m'] * 1e3:.3f} mm), scale error {resumed['scale_err']:.6f}; {resumed['seconds']:.3f} s "
+             f"(cli.main), K2 launches {resumed['launches']['nn_argmin']} (largest Q {resumed['max_queries']}), "
+             f"peak device memory {resumed['peak_mem_bytes'] / 2**20:.1f} MiB, {resumed['ba_solves']} BA solves")
+        dp = resumed["depth_project_batch"]
+        _log(f"[resume] depth_project_batch over views {dp['views']} of the resumed model ({dp['features']} "
+             f"feature rows, {min(dp['candidates'])}-{max(dp['candidates'])} frustum candidates each): "
+             f"{dp['found']} features found on the card and on the CPU alike, depths within "
+             f"{dp['depth_err_m']:.3g} m, chosen points differing {dp['points_differ']}; card "
+             f"{dp['card_ms']:.3f} ms (CUDA events, one call), CPU {dp['cpu_seconds']:.3f} s")
+        _log("[resume] mapper phases:\n" + resumed["phases"])
+
         # 7. the overlapped front end
         clock("phase 7")
         n = args.overlap_images
@@ -2714,7 +2849,8 @@ def main(argv=None) -> int:
                    "descriptor world": res["mapper_launches"]["nn_argmin"],
                    "bundle_adjuster": cmds["bundle_adjuster"]["launches"]["nn_argmin"],
                    "hierarchical_mapper": cmds["hierarchical_mapper"]["launches"]["nn_argmin"],
-                   "pixel world, sharded BA": sh["mapper"]["launches"]["nn_argmin"]}
+                   "pixel world, sharded BA": sh["mapper"]["launches"]["nn_argmin"],
+                   "resume": resumed["launches"]["nn_argmin"]}
     f32_launches = {"guided matcher, classic world": cl["guided_launches"]["match_top2"],
                     "MatchPool, sharded": sh["pool"]["launches"]}
     u8_launches["spatial_matcher"] = cmds["spatial_matcher"]["launches"]["match_top2_u8"]
@@ -2739,6 +2875,10 @@ def main(argv=None) -> int:
     if len(cam) != 1 or cam[1]["model_id"] != 1 or list(cam[1]["params"]) != [PIXEL_F, PIXEL_F, PIXEL_W / 2, PIXEL_H / 2]:
         raise AssertionError(f"pixel world: cameras {cam}")
     _require_model("pixel world", px, args.n_images)
+    _require_model("resume", resumed, args.n_images)
+    if not resumed["registered"] > resumed["snapshot_registered"]:
+        raise AssertionError(f"resume: registered {resumed['registered']}, not above the snapshot's "
+                             f"{resumed['snapshot_registered']}")
     _require_model("overlapped front end", ov, args.overlap_images)
     _require_reference_scale(rf, args.ref_images)
     _require_model("descriptor world", res, args.descriptor_images)

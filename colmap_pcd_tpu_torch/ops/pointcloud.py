@@ -1,15 +1,16 @@
 """Device ops on the LiDAR map: depth projection, ray-plane seeding, 1-NN.
 
 Port of colmap_pcd_tpu/ops/pointcloud.py (`frustum_planes` :56,
-`points_in_frustum` :105, `depth_project` :134, `depth_project_shared`
-:235, `nn_query` :260, `ray_plane_points` :305). The
-reference splats points into a z-buffered depth image behind mutexes
+`points_in_frustum` :105, `depth_project` :134, `depth_project_batch`
+:222, `depth_project_shared` :235, `nn_query` :260, `ray_plane_points`
+:305). The reference splats points into a z-buffered depth image behind mutexes
 (src/lidar/pcd_projection.cc:315-462); here every (feature, candidate point)
 pair is tested for splat coverage and the nearest covering point per
 feature wins through a blocked running argmin — exact, no scatter.
 
 The JAX version vmaps depth_project over views; here the batch of views is
-an explicit leading dimension, and the candidate block is sized so that one
+an explicit leading dimension (of the candidates too, in
+depth_project_batch), and the candidate block is sized so that one
 [B, F, block] temporary stays near 256 MB.
 """
 
@@ -119,30 +120,10 @@ def _block_size(B: int, F: int, M: int) -> int:
     return max(256, min(M, _BLOCK_ELEMS // max(B * F, 1)))
 
 
-def depth_project_shared(
-    feat_xy: Tensor,  # [B,F,2] full-res feature pixels
-    feat_valid: Tensor,  # [B,F]
-    map_pts: Tensor,  # [M,3] world-frame candidate lidar points, shared by all views
-    map_nrm: Tensor,  # [M,3]
-    map_valid: Tensor,  # [M]
-    q: Tensor,  # [B,4]
-    t: Tensor,  # [B,3]
-    params: Tensor,  # [B,12]
-    width: int,
-    height: int,
-    model_id: int,
-    opts: ProjOptions,
-    block: int | None = None,
-) -> tuple[Tensor, Tensor, Tensor]:
-    """For each feature pixel of each view, the nearest lidar point whose
-    splat covers it (ImageMapProj z-buffer semantics, pcd_projection.cc:
-    315-462). Points project through the image's full camera model, cover a
-    rectangle of +-scale pixels in the depth_image_scale grid, must lie at
-    depth z in [min_lidar_proj_dist, choose_meter], and the covering point
-    nearest the camera center wins (ties: lowest map index).
-
-    Returns (lidar_pt [B,F,3], lidar_nrm [B,F,3], found [B,F] bool).
-    """
+def _depth_project(feat_xy, feat_valid, pts_all, nrm_all, valid_all, q, t, params,
+                   width, height, model_id, opts, block):
+    """The nearest covering point per feature of B views over candidate sets
+    [M,3] (one set shared by all views) or [B,M,3] (one set per view)."""
     sc = opts.depth_image_scale
     fx, fy, _, _ = cm.focal_pp(params, model_id)  # [B]
     fuv = torch.floor(feat_xy * sc)  # [B,F,2] feature pixels in the scaled grid
@@ -155,15 +136,16 @@ def depth_project_shared(
     feat_ok = (feat_valid > 0) & in_img
 
     B, F = feat_xy.shape[:2]
-    M = map_pts.shape[0]
+    M = pts_all.shape[-2]
+    dev = pts_all.device
     block = block or _block_size(B, F, M)
-    big = torch.tensor(1e30, dtype=torch.float32, device=map_pts.device)
-    best_dist = torch.full((B, F), 1e30, dtype=torch.float32, device=map_pts.device)
-    best_idx = torch.zeros((B, F), dtype=torch.int64, device=map_pts.device)
+    big = torch.tensor(1e30, dtype=torch.float32, device=dev)
+    best_dist = torch.full((B, F), 1e30, dtype=torch.float32, device=dev)
+    best_idx = torch.zeros((B, F), dtype=torch.int64, device=dev)
     qb, tb, pb = q[:, None, :], t[:, None, :], params[:, None, :]
     for start in range(0, M, block):
-        pts = map_pts[start : start + block]  # [b,3]
-        val = map_valid[start : start + block]
+        pts = pts_all[..., start : start + block, :]  # [b,3] or [B,b,3]
+        val = valid_all[..., start : start + block]
         pc = se3.se3_apply(qb, tb, pts)  # [B,b,3]
         z = pc[..., 2]
         dist = torch.linalg.norm(pc, dim=-1)
@@ -188,7 +170,61 @@ def depth_project_shared(
         best_dist = torch.where(upd, bd, best_dist)
         best_idx = torch.where(upd, bi + start, best_idx)
     found = (best_dist < 1e30) & feat_ok
-    return map_pts[best_idx], map_nrm[best_idx], found
+    if pts_all.dim() == 2:
+        return pts_all[best_idx], nrm_all[best_idx], found
+    idx = best_idx[..., None]
+    return torch.take_along_dim(pts_all, idx, dim=1), torch.take_along_dim(nrm_all, idx, dim=1), found
+
+
+def depth_project_shared(
+    feat_xy: Tensor,  # [B,F,2] full-res feature pixels
+    feat_valid: Tensor,  # [B,F]
+    map_pts: Tensor,  # [M,3] world-frame candidate lidar points, shared by all views
+    map_nrm: Tensor,  # [M,3]
+    map_valid: Tensor,  # [M]
+    q: Tensor,  # [B,4]
+    t: Tensor,  # [B,3]
+    params: Tensor,  # [B,12]
+    width: int,
+    height: int,
+    model_id: int,
+    opts: ProjOptions,
+    block: int | None = None,
+) -> tuple[Tensor, Tensor, Tensor]:
+    """For each feature pixel of each view, the nearest lidar point whose
+    splat covers it (ImageMapProj z-buffer semantics, pcd_projection.cc:
+    315-462). Points project through the image's full camera model, cover a
+    rectangle of +-scale pixels in the depth_image_scale grid, must lie at
+    depth z in [min_lidar_proj_dist, choose_meter], and the covering point
+    nearest the camera center wins (ties: lowest map index).
+
+    Returns (lidar_pt [B,F,3], lidar_nrm [B,F,3], found [B,F] bool).
+    """
+    return _depth_project(feat_xy, feat_valid, map_pts, map_nrm, map_valid, q, t, params,
+                          width, height, model_id, opts, block)
+
+
+def depth_project_batch(
+    feat_xy: Tensor,  # [B,F,2]
+    feat_valid: Tensor,  # [B,F]
+    cand_pts: Tensor,  # [B,M,3] each view's own candidate set, padded to M
+    cand_nrm: Tensor,  # [B,M,3]
+    cand_valid: Tensor,  # [B,M]
+    q: Tensor,  # [B,4]
+    t: Tensor,  # [B,3]
+    params: Tensor,  # [B,12]
+    width: int,
+    height: int,
+    model_id: int,
+    opts: ProjOptions,
+    block: int | None = None,
+) -> tuple[Tensor, Tensor, Tensor]:
+    """depth_project of each view over its own candidate set (e.g. the map
+    points in its frustum, `points_in_frustum`), batched over the views as
+    depth_project_shared is: one pass over the candidate blocks for all B.
+    Returns (lidar_pt [B,F,3], lidar_nrm [B,F,3], found [B,F] bool)."""
+    return _depth_project(feat_xy, feat_valid, cand_pts, cand_nrm, cand_valid, q, t, params,
+                          width, height, model_id, opts, block)
 
 
 def depth_project(

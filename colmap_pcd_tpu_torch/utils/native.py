@@ -4,8 +4,8 @@ Builds the shared library on first use (g++, seconds) from the repo's `cpp/`,
 which the JAX package builds too. Every consumer has a numpy fallback, so
 the package works without a toolchain; a failed build is logged. The native
 path is the host-side kd-tree (FLANN's role in the reference, and the
-`backend="host"` of `LidarMap.nn_query`) and the bulk correspondence-graph
-CSR build.
+`backend="host"` of `LidarMap.nn_query`, with its radius search) and the
+bulk correspondence graph (the CSR build and the incremental `NativeCorrGraph`).
 """
 
 from __future__ import annotations
@@ -77,7 +77,16 @@ def get_lib():
         lib.kdtree_build.restype = ctypes.c_void_p
         lib.kdtree_build.argtypes = [c_fp, ctypes.c_int32]
         lib.kdtree_nn.argtypes = [ctypes.c_void_p, c_fp, ctypes.c_int32, c_i32, c_fp]
+        lib.kdtree_radius.argtypes = [
+            ctypes.c_void_p, c_fp, ctypes.c_int32, ctypes.c_float, ctypes.c_int32, c_i32, c_i32,
+        ]
         lib.kdtree_free.argtypes = [ctypes.c_void_p]
+        lib.cg_create.restype = ctypes.c_void_p
+        lib.cg_add_matches.argtypes = [ctypes.c_void_p, c_i64, c_i64, ctypes.c_int32]
+        lib.cg_find.argtypes = [ctypes.c_void_p, c_i64, ctypes.c_int32, ctypes.c_int32, c_i64, c_i32]
+        lib.cg_num_nodes.restype = ctypes.c_int64
+        lib.cg_num_nodes.argtypes = [ctypes.c_void_p]
+        lib.cg_free.argtypes = [ctypes.c_void_p]
         lib.cg_build_csr.restype = ctypes.c_int64
         lib.cg_build_csr.argtypes = [c_i64, c_i64, ctypes.c_int64, c_i64, c_i64, c_i64]
         _lib = lib
@@ -120,12 +129,37 @@ class NativeKdTree:
         self.lib.kdtree_nn(self.handle, _fp(q), n, _i32(idx), _fp(d2))
         return idx, np.sqrt(d2)
 
+    def radius(self, queries: np.ndarray, radius: float, cap: int = 64):
+        """(indices [Q, cap], counts [Q]): up to `cap` points within `radius`."""
+        q = np.ascontiguousarray(queries, np.float32)
+        n = len(q)
+        out_idx = np.zeros((n, cap), np.int32)
+        cnt = np.zeros(n, np.int32)
+        if self.handle is None:
+            d = np.linalg.norm(self.points[None] - q[:, None], axis=-1)
+            for i in range(n):
+                sel = np.nonzero(d[i] <= radius)[0][:cap]
+                out_idx[i, : len(sel)] = sel
+                cnt[i] = len(sel)
+            return out_idx, cnt
+        self.lib.kdtree_radius(self.handle, _fp(q), n, radius, cap, _i32(out_idx), _i32(cnt))
+        return out_idx, cnt
+
     def __del__(self):
         if getattr(self, "handle", None) and self.lib is not None:
             self.lib.kdtree_free(self.handle)
 
 
 FEAT_BITS = 20  # (image_id << 20) | feat_idx packing
+
+
+def pack_key(image_id, feat_idx):
+    return (np.asarray(image_id, np.int64) << FEAT_BITS) | np.asarray(feat_idx, np.int64)
+
+
+def unpack_key(key):
+    key = np.asarray(key, np.int64)
+    return key >> FEAT_BITS, key & ((1 << FEAT_BITS) - 1)
 
 
 def build_csr(keys1: np.ndarray, keys2: np.ndarray):
@@ -155,3 +189,42 @@ def build_csr(keys1: np.ndarray, keys2: np.ndarray):
     keys, starts = np.unique(src, return_index=True)
     off = np.concatenate([starts, [len(src)]]).astype(np.int64)
     return keys, off, dst
+
+
+class NativeCorrGraph:
+    """Bulk correspondence adjacency (C++ CSR); without the library, dicts."""
+
+    def __init__(self):
+        self.lib = get_lib()
+        self.handle = self.lib.cg_create() if self.lib is not None else None
+        self._py: dict[int, list[int]] = {}
+
+    def add_matches(self, image_id1: int, image_id2: int, matches: np.ndarray):
+        k1 = np.ascontiguousarray(pack_key(image_id1, matches[:, 0]))
+        k2 = np.ascontiguousarray(pack_key(image_id2, matches[:, 1]))
+        if self.handle is not None:
+            self.lib.cg_add_matches(self.handle, _i64(k1), _i64(k2), len(k1))
+            return
+        for a, b in zip(k1.tolist(), k2.tolist()):
+            self._py.setdefault(a, []).append(b)
+            self._py.setdefault(b, []).append(a)
+
+    def find_batch(self, image_id: int, feat_idx: np.ndarray, cap: int = 32):
+        """For each feature: neighbour (image_id, feat) arrays [Q, cap] and counts [Q]."""
+        keys = np.ascontiguousarray(pack_key(image_id, feat_idx))
+        n = len(keys)
+        out = np.zeros((n, cap), np.int64)
+        cnt = np.zeros(n, np.int32)
+        if self.handle is not None:
+            self.lib.cg_find(self.handle, _i64(keys), n, cap, _i64(out), _i32(cnt))
+        else:
+            for i, k in enumerate(keys.tolist()):
+                nb = self._py.get(k, [])[:cap]
+                out[i, : len(nb)] = nb
+                cnt[i] = len(nb)
+        imgs, feats = unpack_key(out)
+        return imgs, feats, cnt
+
+    def __del__(self):
+        if getattr(self, "handle", None) and self.lib is not None:
+            self.lib.cg_free(self.handle)

@@ -1,10 +1,12 @@
-"""Host-side pipeline runtime: a bounded job queue and a staged pipeline.
+"""Host-side pipeline runtime: a bounded job queue, a staged pipeline and a
+controllable thread wrapper.
 
 Carried from colmap_pcd_tpu/utils/threading_utils.py (parity with
 src/util/threading.{h,cc} JobQueue): the feature-extraction pipeline's
 read -> extract -> write stages (feature/extraction.h:50-148) map onto
 `pipeline_map`, with the device-facing stage single-threaded and the IO
-stage fanned out.
+stage fanned out. `ControllableThread` is the Thread protocol
+(threading.h:99-139).
 """
 
 from __future__ import annotations
@@ -49,6 +51,54 @@ class JobQueue:
 
     def wait(self):
         self.q.join()
+
+
+class ControllableThread:
+    """Start/Stop/Pause/Resume/Wait + callbacks (threading.h:99-139): the
+    protocol controllers expose so a UI or a calling program can manage them. The
+    target receives the thread and polls `is_stopped` / `block_if_paused`."""
+
+    def __init__(self, target: Callable[["ControllableThread"], Any]):
+        self._target = target
+        self._thread: threading.Thread | None = None
+        self._stop = threading.Event()
+        self._pause = threading.Event()
+        self._resume = threading.Event()
+        self._resume.set()
+        self.callbacks: dict[str, list[Callable]] = {}
+
+    def add_callback(self, name: str, fn: Callable):
+        self.callbacks.setdefault(name, []).append(fn)
+
+    def callback(self, name: str, *args):
+        for fn in self.callbacks.get(name, []):
+            fn(*args)
+
+    def start(self):
+        self._thread = threading.Thread(target=self._target, args=(self,), daemon=True)
+        self._thread.start()
+
+    def stop(self):
+        self._stop.set()
+        self._resume.set()
+
+    def pause(self):
+        self._resume.clear()
+        self._pause.set()
+
+    def resume(self):
+        self._pause.clear()
+        self._resume.set()
+
+    def wait(self):
+        if self._thread is not None:
+            self._thread.join()
+
+    def is_stopped(self) -> bool:
+        return self._stop.is_set()
+
+    def block_if_paused(self):
+        self._resume.wait()
 
 
 def pipeline_map(

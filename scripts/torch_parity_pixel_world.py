@@ -2,7 +2,7 @@
 """Both packages on the light pixel world, on the CPU, stage by stage.
 
     JAX_PLATFORMS=cpu python3 scripts/torch_parity_pixel_world.py [--n-images 30]
-        [--threads 4] [--out DIR]
+        [--threads 4] [--out DIR] [--resume-at N]
 
 Renders the first N views of the pixel world (the corridor at 640x480,
 f = 500, 0.8 m step, as chip_smoke.py's phase 6 and the JAX package's bench
@@ -14,10 +14,13 @@ PINHOLE with the known intrinsics), the sequential matcher at overlap 5
 without the quadratic offsets (min_num_inliers 15), and the lidar
 IncrementalMapperController with the bench's MapperOptions and the pose
 prior of image 1. A third run puts the port's mapper on the JAX package's
-database, which separates the front end from the mapper.
+database, which separates the front end from the mapper. With
+`--resume-at N`, each package's own run also writes a snapshot every N
+registrations, and is run again from its N-image snapshot to the end.
 
-It prints, for each stage: keypoints per image in each package and the
-share of keypoints with a partner in the other (0.01 px, 1e-3 in scale);
+It prints, for each stage: keypoints per image in each package, the share
+of keypoints with a partner in the other (0.01 px, 1e-3 in scale) and the
+share of partners with the same orientation (1e-4 rad);
 verified pairs and the pairs only one package verified; inliers per pair
 (each package's median and the largest relative difference); the
 registration order; registered count, ATE and scale error. The last line
@@ -34,6 +37,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import shutil
 import sys
 import tempfile
 import time
@@ -105,14 +109,19 @@ def read_front_end(pkg: dict, db_path: str) -> dict:
     return {"keypoints": kps, "pairs": pairs}
 
 
-def run_mapper(pkg: dict, db_path: str, img_dir: str, map_pts, map_nrm, gt, port: bool) -> dict:
+def run_mapper(pkg: dict, db_path: str, img_dir: str, map_pts, map_nrm, gt, port: bool,
+               snapshot_path: str = "", snapshot_freq: int = 0, input_path: str = "") -> dict:
     """The lidar controller on a database, as bench.py's non-overlapped
-    branch builds its reconstruction and graph."""
+    branch builds its reconstruction and graph; with `input_path`, on the
+    model written there, as the mapper command's --input_path loads it
+    (the database's camera, the images the model lacks added)."""
     R, G = pkg["reconstruction"], pkg["graph"]
     db = pkg["database"].Database(db_path)
-    rec = R.Reconstruction()
+    rec = R.Reconstruction.read(input_path) if input_path else R.Reconstruction()
     rec.add_camera(R.Camera(1, 1, W, H, np.asarray([F, F, W / 2, H / 2])))
     for iid, im in sorted(db.images().items()):
+        if iid in rec.images:
+            continue
         kp = db.read_keypoints(iid)
         rec.add_image(R.Image(iid, im["name"], 1, xys=kp[:, :2].astype(np.float64)))
     graph = G.CorrespondenceGraph()
@@ -126,7 +135,8 @@ def run_mapper(pkg: dict, db_path: str, img_dir: str, map_pts, map_nrm, gt, port
     C = pkg["controllers"]
     ctl = C.IncrementalMapperController(
         rec, graph, pkg["mapper"].MapperOptions(**MAPPER_OPTIONS),
-        C.ControllerOptions(verbose=False, image_path=img_dir), lidar_map=lmap,
+        C.ControllerOptions(verbose=False, image_path=img_dir, snapshot_path=snapshot_path,
+                            snapshot_images_freq=snapshot_freq), lidar_map=lmap,
         pose_priors={1: gt[0]}, **kw,
     )
     order = []
@@ -141,24 +151,43 @@ def run_mapper(pkg: dict, db_path: str, img_dir: str, map_pts, map_nrm, gt, port
             "points": len(rec.points3D)}
 
 
-def keypoint_partners(a: np.ndarray, b: np.ndarray) -> float:
-    """Share of a's keypoints with a partner in b within 0.01 px and 1e-3
-    relative scale (tests/test_torch_sift.py's partner test), both ways."""
+def keypoint_partners(a: np.ndarray, b: np.ndarray) -> tuple[float, float]:
+    """Keypoints as the database holds them, (x, y, a11, a12): scale
+    s = hypot(a11, a12) and orientation atan2(-a12, a11). Returns the share
+    of keypoints with a partner in the other set within 0.01 px and 1e-3
+    relative scale (tests/test_torch_sift.py's partner test; the smaller of
+    the two ways), and the share of a's partners whose orientation agrees
+    within 1e-4 rad (the SIFT bar's), each taken at the closest orientation
+    among the partners at its location (SIFT gives a point one keypoint per
+    orientation histogram peak)."""
     from scipy.spatial import cKDTree
+
+    def scale_ori(k):
+        return np.hypot(k[:, 2], k[:, 3]), np.arctan2(-k[:, 3], k[:, 2])
 
     def one(p, q):
         if len(p) == 0 or len(q) == 0:
-            return 0.0
-        d, j = cKDTree(q[:, :2]).query(p[:, :2])
-        return float(((d <= 0.01) & (np.abs(q[j, 2] / p[:, 2] - 1.0) <= 1e-3)).mean())
+            return np.zeros(len(p), bool), np.zeros(len(p), bool)
+        (sp, op), (sq, oq) = scale_ori(p), scale_ori(q)
+        d, j = cKDTree(q[:, :2]).query(p[:, :2], k=min(4, len(q)))
+        d, j = d.reshape(len(p), -1), j.reshape(len(p), -1)
+        ok = (d <= 0.01) & (np.abs(sq[j] / sp[:, None] - 1.0) <= 1e-3)
+        dtheta = np.where(ok, np.abs(np.angle(np.exp(1j * (op[:, None] - oq[j])))), np.inf)
+        return ok.any(1), dtheta.min(1) <= 1e-4
 
-    return min(one(a, b), one(b, a))
+    partnered, same = one(a, b)
+    back, _ = one(b, a)
+    same_share = float(same[partnered].mean()) if partnered.any() else 0.0
+    return min(float(partnered.mean()), float(back.mean())), same_share
 
 
 def compare_front_ends(fj: dict, ft: dict) -> dict:
     kj, kt = fj["keypoints"], ft["keypoints"]
     counts = [(len(kj[i]), len(kt[i])) for i in sorted(kj)]
-    partners = [keypoint_partners(kj[i], kt[i]) for i in sorted(kj)]
+    shares = {i: keypoint_partners(kj[i], kt[i]) for i in sorted(kj)}
+    partners = [p for p, _ in shares.values()]
+    same_ori = {i: o for i, (_, o) in shares.items()}
+    worst = min(same_ori, key=same_ori.get)
     pj, pt = set(fj["pairs"]), set(ft["pairs"])
     both = sorted(pj & pt)
     nj = np.array([len(fj["pairs"][p]) for p in both])
@@ -177,6 +206,8 @@ def compare_front_ends(fj: dict, ft: dict) -> dict:
         "keypoints_equal_count": sum(a == b for a, b in counts), "images": len(counts),
         "keypoints_jax": [a for a, _ in counts], "keypoints_port": [b for _, b in counts],
         "min_partner_share": min(partners),
+        "min_same_orientation_share": same_ori[worst], "worst_orientation_image": int(worst),
+        "images_below_orientation_bar": sum(o < 0.99 for o in same_ori.values()),
         "pairs_jax": len(pj), "pairs_port": len(pt), "only_jax": sorted(pj - pt), "only_port": sorted(pt - pj),
         "inliers_median_jax": float(np.median(nj)) if len(nj) else 0.0,
         "inliers_median_port": float(np.median(nt)) if len(nt) else 0.0,
@@ -192,6 +223,9 @@ def main(argv=None) -> int:
     ap.add_argument("--n-images", type=int, default=30)
     ap.add_argument("--threads", type=int, default=4, help="torch CPU threads")
     ap.add_argument("--out", default=None, help="working directory (default: a temporary one)")
+    ap.add_argument("--resume-at", type=int, default=0,
+                    help="each package's own mapper run writes a snapshot every N registrations and is "
+                         "resumed from the one of N images, as `mapper --input_path` does")
     args = ap.parse_args(argv)
     torch, jax_pkg, port_pkg = _packages()
     torch.set_num_threads(args.threads)
@@ -221,7 +255,9 @@ def main(argv=None) -> int:
     _log(f"[keypoints] equal counts on {fe['keypoints_equal_count']} of {fe['images']} images; "
          f"jax {min(fe['keypoints_jax'])}-{max(fe['keypoints_jax'])}, port "
          f"{min(fe['keypoints_port'])}-{max(fe['keypoints_port'])}; smallest partner share "
-         f"{fe['min_partner_share']:.4f}")
+         f"{fe['min_partner_share']:.4f}; same orientation (1e-4 rad) among the partners: least "
+         f"{fe['min_same_orientation_share']:.4f} (image {fe['worst_orientation_image']}), "
+         f"{fe['images_below_orientation_bar']} images under 0.99")
     _log(f"[pairs] verified: jax {fe['pairs_jax']}, port {fe['pairs_port']}; only jax {fe['only_jax']}, "
          f"only port {fe['only_port']}")
     _log(f"[inliers] median per pair jax {fe['inliers_median_jax']:.1f}, port "
@@ -229,12 +265,23 @@ def main(argv=None) -> int:
          f"max {fe['inliers_max_rel_diff']:.4f}; share of the JAX inliers (by keypoint coordinates) the port also keeps: "
          f"mean {fe['inlier_rows_shared_mean']:.4f}, least {fe['inlier_rows_shared_min']:.4f}")
 
+    snaps = {name: os.path.join(out, f"snapshots_{name}") for name in dbs}
+    for path in snaps.values():
+        shutil.rmtree(path, ignore_errors=True)
     runs = {
-        "jax": run_mapper(jax_pkg, dbs["jax"], img_dir, map_pts, map_nrm, gt, port=False),
-        "port": run_mapper(port_pkg, dbs["port"], img_dir, map_pts, map_nrm, gt, port=True),
-        "port on the jax database": run_mapper(port_pkg, dbs["jax"], img_dir, map_pts, map_nrm, gt,
-                                               port=True),
+        name: run_mapper(pkg, dbs[name], img_dir, map_pts, map_nrm, gt, port=name == "port",
+                         snapshot_path=snaps[name] if args.resume_at else "", snapshot_freq=args.resume_at)
+        for name, pkg in (("jax", jax_pkg), ("port", port_pkg))
     }
+    runs["port on the jax database"] = run_mapper(port_pkg, dbs["jax"], img_dir, map_pts, map_nrm, gt,
+                                                  port=True)
+    for name, pkg in (("jax", jax_pkg), ("port", port_pkg)) if args.resume_at else ():
+        R = pkg["reconstruction"].Reconstruction
+        held = {d: R.read(os.path.join(snaps[name], d)).num_reg_images for d in os.listdir(snaps[name])}
+        start = next(d for d, n in sorted(held.items()) if n == args.resume_at)
+        runs[f"{name} resumed from {args.resume_at}"] = run_mapper(
+            pkg, dbs[name], img_dir, map_pts, map_nrm, gt, port=name == "port",
+            input_path=os.path.join(snaps[name], start))
     for name, r in runs.items():
         _log(f"[mapper] {name}: registered {r['registered']}/{args.n_images}, ATE {r['ate_m'] * 1e3:.3f} mm, "
              f"scale error {r['scale_err']:.6f}, {r['points']} points, {r['seconds']:.1f} s; order "

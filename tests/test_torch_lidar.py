@@ -1,5 +1,5 @@
 """Parity of the port's lidar ops with the JAX package: depth projection
-(single view and the shared-map batch), ray-plane seeding, the plain version
+(single view, the per-view candidate batch and the shared-map batch), ray-plane seeding, the plain version
 of the 1-NN kernel K2, and the LidarMap glue. Inputs are made with numpy from
 a seed and handed to both implementations."""
 
@@ -113,6 +113,53 @@ def test_depth_project_shared_parity(corridor):
     ))
     for b in range(B):
         _assert_same_association(lt[b], ft[b], lj[b], fj[b], q[b], t[b])
+
+
+def test_depth_project_batch_parity(corridor):
+    """Each view over its own frustum-culled candidate set, ragged and padded
+    to the longest (the padding invalid), with the mapper's projection
+    options: the port's batch against the JAX package's vmapped
+    depth_project, by _assert_same_association (found equal; points equal
+    but at distance ties within 1e-4 m on < 1% of the features); and
+    against the port's own depth_project of each view, exactly."""
+    pts, nrm = corridor
+    rng = np.random.default_rng(4)
+    B, F = 3, 400
+    q, t = _views(rng, B)
+    xy, valid = _features(rng, B, F)
+    params = np.tile(_params(PINHOLE), (B, 1))
+    opts = pc_j.ProjOptions()
+    sets = []
+    for b in range(B):
+        planes = pc_t.frustum_planes(T(q[b]), T(t[b]), 500.0, 500.0, 320.0, 240.0, W, H,
+                                     opts.choose_meter)
+        sel = pc_t.points_in_frustum(planes, T(pts)).numpy()
+        sets.append(np.nonzero(sel)[0][: len(pts) // (b + 2)])  # ragged
+    M = max(len(s) for s in sets)
+    cp = np.zeros((B, M, 3), np.float32)
+    cn = np.zeros((B, M, 3), np.float32)
+    cv = np.zeros((B, M), np.float32)
+    for b, s in enumerate(sets):
+        cp[b, : len(s)], cn[b, : len(s)], cv[b, : len(s)] = pts[s], nrm[s], 1.0
+    assert len({len(s) for s in sets}) == B and min(len(s) for s in sets) > 1000
+    lj, _, fj = (np.asarray(a) for a in pc_j.depth_project_batch(
+        jnp.asarray(xy), jnp.asarray(valid), jnp.asarray(cp), jnp.asarray(cn), jnp.asarray(cv),
+        jnp.asarray(q), jnp.asarray(t), jnp.asarray(params), W, H, PINHOLE, opts,
+    ))
+    opts_t = convert.proj_options_from(opts._asdict())
+    lt, nt, ft = (a.numpy() for a in pc_t.depth_project_batch(
+        T(xy), T(valid), T(cp), T(cn), T(cv), T(q), T(t), T(params), W, H, PINHOLE, opts_t,
+    ))
+    assert fj.sum() > 300
+    for b in range(B):
+        _assert_same_association(lt[b], ft[b], lj[b], fj[b], q[b], t[b])
+        one = [a.numpy() for a in pc_t.depth_project(
+            T(xy[b]), T(valid[b]), T(cp[b]), T(cn[b]), T(cv[b]), T(q[b]), T(t[b]), T(params[b]),
+            W, H, PINHOLE, opts_t,
+        )]
+        np.testing.assert_array_equal(ft[b], one[2])
+        np.testing.assert_array_equal(lt[b][ft[b]], one[0][one[2]])
+        np.testing.assert_array_equal(nt[b][ft[b]], one[1][one[2]])
 
 
 def test_ray_plane_points_parity():
