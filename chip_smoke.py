@@ -30,13 +30,19 @@ Phases, each printing its numbers on its own line:
      reference-scale world's chunk (B = 16 at cap 1024, ragged 740-850), a
      chunk at the feature cap (B = 16 at cap 8192, ragged 6 000-8 192), one
      pair at 8192 x 8192, a ragged 1000 x 1537 pair
-     and a pair with duplicated descriptors. The uint8 cases are the float
+     and a pair with duplicated descriptors. The float kernel runs rows
+     alone (`match_top2`) and fused with the cross-check
+     (`match_top2_cross`): the fused launch must give the same rows bit for
+     bit and each column's best valid row as the plain argmax away from
+     near-ties, and a cross-checked `match_descriptors` must take one
+     launch. The uint8 cases are the float
      ones quantized as the world generator quantizes descriptors; the uint8
      kernel must agree with its plain version exactly (similarity error 0,
      no index or accept mismatch), and its launch on the transpose must form
-     bit-identical similarities. Times as in 3., the float and the uint8
-     kernel in turns (float, uint8, uint8, float); the library call is one
-     bf16 `torch.matmul` of the chunk (the product alone);
+     bit-identical similarities. Times as in 3., the float (rows) and the
+     uint8 kernel in turns (float, uint8, uint8, float); the library calls
+     are one f32 (TF32 off) and one bf16 `torch.matmul` of the chunk (the
+     product alone);
   5. SIFT on the card: one batch of 8 rendered 640x480 images extracted on
      CUDA and on the CPU (keypoint sets and descriptors must agree within
      the tolerances of tests/test_torch_sift.py), the CUDA batch extracted
@@ -305,9 +311,13 @@ SHARDED_VIEWS = 30
 # published peaks of one H100 SXM at its full 700 W (NVIDIA's data sheet):
 # device memory bytes/s, f32 FLOP/s outside the tensor cores, int8 tensor
 # core OP/s. A bound is the larger of bytes / HBM and operations / peak.
+# TF32X3_FLOPS, a third of the TF32 tensor-core peak, is the rate of
+# 3xTF32 products, which the float K1 does not use (too coarse for its
+# SIM_ATOL, scripts/torch_k1_numerics.py): its share is printed beside.
 HBM_BYTES_S = 3.35e12
 F32_FLOPS = 67e12
 INT8_OPS = 1979e12
+TF32X3_FLOPS = 495e12 / 3
 
 
 def _log(msg: str):
@@ -529,7 +539,8 @@ def _quantize(d: np.ndarray) -> np.ndarray:
 
 
 def _check_k1_f32(label, shape, d1, d2, v1, v2, opts):
-    """The float kernel against its plain version (as since it landed)."""
+    """The float kernel, rows alone and fused with the cross-check, against
+    the plain versions."""
     import torch
 
     from colmap_pcd_tpu_torch.ops import match_kernel, matching
@@ -554,12 +565,27 @@ def _check_k1_f32(label, shape, d1, d2, v1, v2, opts):
         same = (d2[0, twin.clamp(min=0)] == d2[0, ik]).all(-1)
         if bool((has_twin & same).any()):
             raise AssertionError("K1 picked a duplicated column over its lower twin")
-    # the full accept decision of match_descriptors (two launches)
+    # the fused launch: the same rows bit for bit, and the best valid row of
+    # every column equal to the plain argmax away from columns whose best
+    # and second-best valid rows lie within SIM_ATOL
+    c1, c2, cidx, back = match_kernel.match_top2_cross(d1, d2, v1, v2)
+    *_, rback = match_kernel.match_top2_cross_reference(d1, d2, v1, v2)
+    if not (torch.equal(c1, s1) and torch.equal(c2, s2) and torch.equal(cidx, idx)):
+        raise AssertionError(f"the fused K1 forms other rows than the rows-only launch ({label})")
+    bt1, bt2, _ = match_kernel.match_top2_reference(d2, d1, v1)
+    col_sep = (bt1 - bt2) > SIM_ATOL
+    back_mism = int(((back != rback) & col_sep).sum())
+    if back_mism:
+        raise AssertionError(f"the fused K1's column bests differ in {back_mism} columns away from near-ties ({label})")
+    # the full accept decision of match_descriptors: one launch
+    before = match_kernel.match_top2.launches
     ik, ok_k, _ = matching.match_descriptors(d1, d2, v1, v2, opts)
+    if match_kernel.match_top2.launches != before + 1:
+        raise AssertionError(f"a cross-checked match_descriptors took "
+                             f"{match_kernel.match_top2.launches - before} launches ({label})")
     ir, ok_r, _ = matching.match_descriptors_reference(d1, d2, v1, v2, opts)
     dist1 = torch.arccos(r1.clamp(-1, 1))
     dist2 = torch.arccos(r2.clamp(-1, 1))
-    bt1, bt2, _ = match_kernel.match_top2_reference(d2, d1, v1)
     col_tie = torch.gather(bt1 - bt2, -1, ir) <= SIM_ATOL
     exempt = (
         ((dist1 - opts.max_distance).abs() < SIM_ATOL)
@@ -571,8 +597,10 @@ def _check_k1_f32(label, shape, d1, d2, v1, v2, opts):
         raise AssertionError(f"K1's accept decisions differ in {ok_mism} rows ({label})")
     _log(
         f"[k1] {label}: max abs sim err {err:.3g}, index mismatches away from near-ties "
-        f"{idx_mism}, near-tie rows {int((~sep).sum())}, accepted {int(ok_k.sum())} vs plain "
-        f"{int(ok_r.sum())}, accept mismatches outside 1e-6 of a threshold {ok_mism}"
+        f"{idx_mism}, near-tie rows {int((~sep).sum())}; fused: rows identical, column-best "
+        f"mismatches away from near-ties {back_mism} (near-tie columns {int((~col_sep).sum())}); "
+        f"accepted {int(ok_k.sum())} vs plain {int(ok_r.sum())}, accept mismatches outside 1e-6 "
+        f"of a threshold {ok_mism}"
     )
     return err
 
@@ -664,15 +692,25 @@ def check_match_kernel(rng) -> dict:
         def run_f32():
             return match_kernel.match_top2(d1, d2, v2)
 
+        def run_cross():
+            return match_kernel.match_top2_cross(d1, d2, v1, v2)
+
         def run_u8():
             return match_kernel.match_top2_u8(u1, u2, inv1, inv2, v2, v1)
 
         f32_ms, u8_ms, turns = _turns_ms(run_f32, run_u8, reps)
-        f32_dev, u8_dev = _graph_ms(run_f32, reps), _graph_ms(run_u8, reps)
+        cross_ms = _cuda_ms(run_cross, reps)
+        f32_dev, cross_dev, u8_dev = (_graph_ms(fn, reps) for fn in (run_f32, run_cross, run_u8))
         f32_plain = _cuda_ms(lambda: match_kernel.match_top2_reference(d1, d2, v2), plain_reps)
+        cross_plain = _cuda_ms(lambda: match_kernel.match_top2_cross_reference(d1, d2, v1, v2), plain_reps)
         u8_plain = _cuda_ms(
             lambda: match_kernel.match_top2_u8_reference(u1, u2, inv1, inv2, v2, v1), plain_reps
         )
+        # the libraries' product of the chunk alone: f32 (TF32 off, the
+        # kernel's precision) and bf16
+        if torch.backends.cuda.matmul.allow_tf32:
+            raise AssertionError("TF32 is on: the f32 library yardstick would not be f32")
+        library_f32 = _cuda_ms(lambda: torch.matmul(d1, d2.mT), reps)
         b1, b2 = d1.to(torch.bfloat16), d2.to(torch.bfloat16)
         library_ms = _cuda_ms(lambda: torch.matmul(b1, b2.mT), reps)
         del b1, b2
@@ -681,23 +719,37 @@ def check_match_kernel(rng) -> dict:
         # match_top2(d1, d2, valid2) has no row mask: every row against the
         # valid columns, 2 flops per product term; d1, the valid rows of d2
         # and valid2 read once, 3 outputs written
+        f32_ops = 2.0 * 128 * N1 * float(n2.sum())
         f32_bound = _bound(4.0 * 128 * (B * N1 + float(n2.sum())) + 4 * B * N2 + 12 * B * N1,
-                           2.0 * 128 * N1 * float(n2.sum()), F32_FLOPS)
+                           f32_ops, F32_FLOPS)
+        # the cross-check adds the valid rows against the invalid columns
+        # (back covers every column); both inputs, both masks read once, 3
+        # row outputs and the column output written
+        cross_ops = f32_ops + 2.0 * 128 * float((n1 * (N2 - n2)).sum())
+        cross_bound = _bound(4.0 * 128 * B * (N1 + N2) + 4 * B * (N1 + N2) + 12 * B * N1 + 4 * B * N2,
+                             cross_ops, F32_FLOPS)
         # with valid1 the uint8 kernel owes only the valid rows as well
         u8_bound = _bound(float((n1 + n2).sum()) * (128 + 4) + 4.0 * B * (N1 + N2) + 12 * B * N1,
                           2.0 * 128 * float((n1 * n2).sum()), INT8_OPS)
         tops = 2.0 * 128 * float((n1 * n2).sum()) / (u8_dev * 1e-3) / 1e12
         _log(
-            f"[k1] {label}: float kernel {f32_ms:.4f} ms per call, {f32_dev:.4f} ms on the device "
-            f"(CUDA graph), bound {f32_bound[0]:.4f} ms ({f32_bound[1]}), plain {f32_plain:.4f} ms; "
-            f"uint8 kernel {u8_ms:.4f} ms per call, {u8_dev:.4f} ms on the device, bound "
+            f"[k1] {label}: float kernel, rows: {f32_ms:.4f} ms per call, {f32_dev:.4f} ms on the "
+            f"device (CUDA graph), bound {f32_bound[0]:.4f} ms ({f32_bound[1]}), "
+            f"{100 * f32_bound[0] / f32_dev:.1f}% reached, plain {f32_plain:.4f} ms; fused with the "
+            f"cross-check: {cross_ms:.4f} ms per call, {cross_dev:.4f} ms on the device, bound "
+            f"{cross_bound[0]:.4f} ms ({cross_bound[1]}), {100 * cross_bound[0] / cross_dev:.1f}% "
+            f"reached ({100 * cross_ops / TF32X3_FLOPS * 1e3 / cross_dev:.1f}% of the 3xTF32 rate), "
+            f"{cross_ops / (cross_dev * 1e-3) / 1e12:.1f} TFLOP/s, plain {cross_plain:.4f} ms; one f32 "
+            f"matmul of the chunk (TF32 off) {library_f32:.4f} ms, one bf16 matmul {library_ms:.4f} "
+            f"ms; uint8 kernel {u8_ms:.4f} ms per call, {u8_dev:.4f} ms on the device, bound "
             f"{u8_bound[0]:.4f} ms ({u8_bound[1]}), {100 * u8_bound[0] / u8_dev:.1f}% reached, "
             f"{tops:.1f} TOP/s on the valid rows and columns, plain {u8_plain:.4f} ms; turns "
-            f"float/uint8/uint8/float {' '.join(f'{t:.4f}' for t in turns)}; one bf16 matmul of "
-            f"the chunk {library_ms:.4f} ms"
+            f"float/uint8/uint8/float {' '.join(f'{t:.4f}' for t in turns)}"
         )
-        f32["shapes"][label] = dict(ms=f32_ms, device_ms=f32_dev, plain_ms=f32_plain,
-                                    library_ms=library_ms, bound_ms=f32_bound[0], bound_by=f32_bound[1])
+        f32["shapes"][label] = dict(
+            ms=cross_ms, device_ms=cross_dev, plain_ms=cross_plain, library_ms=library_f32,
+            library_bf16_ms=library_ms, bound_ms=cross_bound[0], bound_by=cross_bound[1],
+            rows_ms=f32_ms, rows_device_ms=f32_dev, rows_plain_ms=f32_plain, rows_bound_ms=f32_bound[0])
         u8["shapes"][label] = dict(ms=u8_ms, device_ms=u8_dev, plain_ms=u8_plain, library_ms=library_ms,
                                    bound_ms=u8_bound[0], bound_by=u8_bound[1], float_kernel_ms=f32_ms)
     f32.update(f32["shapes"]["matcher chunk B=16 cap 2048"])
@@ -2916,7 +2968,7 @@ def main(argv=None) -> int:
         entry("nn_argmin", "nn_argmin.cu", 191, k2_launches["pixel world"], k2,
               launches_by_path=k2_launches),
         entry("match_top2", "match_top2.cu", 94, cl["guided_launches"]["match_top2"], k1["match_top2"],
-              launches_by_path=f32_launches),
+              mma="fma", launches_by_path=f32_launches),
         entry("match_top2_u8", "match_top2_u8.cu", 94, u8_launches["pixel world"],
               k1["match_top2_u8"], mma="wgmma", launches_by_path=u8_launches),
     ]}))

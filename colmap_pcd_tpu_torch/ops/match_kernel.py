@@ -13,7 +13,10 @@ columns counted as -2 and ties going to the lowest column.
     inv_col) is exact in the dot product, so kernel and plain version agree
     to the last bit. The matcher's path.
   * `match_top2` (csrc/match_top2.cu) takes L2-normalized f32 descriptors
-    and forms the products with f32 FMAs. The route for float descriptors.
+    and forms the products with f32 FMAs in the plain product's order. The
+    route for float descriptors. `match_top2_cross` is the same launch
+    with the cross-check's best row of every column formed from the same
+    similarities.
 
 Each wrapper launches its kernel for CUDA tensors and raises if it cannot;
 only CPU tensors take the plain version. A kernel is built at its first
@@ -40,21 +43,28 @@ _lib = None
 _lib_u8 = None
 
 
+def load(source: str = SOURCE) -> ctypes.CDLL:
+    """Compile (if the source changed), load and bind one library of the
+    float kernel; `build` keeps the one of the package's own source."""
+    lib = build_library(source)
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.match_top2_launch.argtypes = [vp, ci, vp, ci, vp, vp, ci, ci, ci] + [vp] * 9
+    lib.match_top2_launch.restype = ci
+    for name in ("match_top2_tile_rows", "match_top2_tile_cols", "match_top2_width"):
+        getattr(lib, name).argtypes = []
+        getattr(lib, name).restype = ci
+    lib.match_top2_key_sentinel.argtypes = []
+    lib.match_top2_key_sentinel.restype = ctypes.c_longlong
+    return lib
+
+
 def build() -> ctypes.CDLL:
-    """Compile (if the source changed) and load the kernel library."""
+    """The library of csrc/match_top2.cu, built at the first call."""
     global _lib
     with _lock:
-        if _lib is not None:
-            return _lib
-        lib = build_library(SOURCE)
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.match_top2_launch.argtypes = [vp, ci, vp, ci, vp, ci, ci, ci, vp, vp, vp, vp, vp, vp, vp]
-        lib.match_top2_launch.restype = ci
-        for name in ("match_top2_tile_rows", "match_top2_tile_cols", "match_top2_width"):
-            getattr(lib, name).argtypes = []
-            getattr(lib, name).restype = ci
-        _lib = lib
-        return lib
+        if _lib is None:
+            _lib = load()
+        return _lib
 
 
 def _best2(sim: Tensor, valid2: Tensor) -> tuple[Tensor, Tensor, Tensor]:
@@ -70,37 +80,69 @@ def _best2(sim: Tensor, valid2: Tensor) -> tuple[Tensor, Tensor, Tensor]:
     return s1, s2, idx
 
 
-def _check(d1: Tensor, d2: Tensor, valid2: Tensor):
+def _best_rows(sim: Tensor, valid1: Tensor) -> Tensor:
+    """The cross-check's best row of every column of sim [..., N1, N2] with
+    the rows where valid1 [..., N1] <= 0 masked to -2: [..., N2] int64, the
+    first of equal maxima."""
+    return torch.argmax(torch.where(valid1[..., :, None] > 0, sim, torch.full_like(sim, -2.0)), dim=-2)
+
+
+def _check(d1: Tensor, d2: Tensor, valid2: Tensor, valid1: Tensor | None = None):
     if d1.dtype != torch.float32 or d2.dtype != torch.float32:
         raise ValueError(f"match_top2: descriptors must be float32, got {d1.dtype}, {d2.dtype}")
     if d1.dim() not in (2, 3) or d2.dim() != d1.dim() or d1.shape[-1] != d2.shape[-1]:
         raise ValueError(f"match_top2: d1 {tuple(d1.shape)} and d2 {tuple(d2.shape)} must be [B,N,D] or [N,D]")
-    if d1.shape[:-2] != d2.shape[:-2] or valid2.shape != d2.shape[:-1]:
+    if (d1.shape[:-2] != d2.shape[:-2] or valid2.shape != d2.shape[:-1]
+            or (valid1 is not None and valid1.shape != d1.shape[:-1])):
         raise ValueError(
             f"match_top2: batch/valid mismatch: d1 {tuple(d1.shape)}, d2 {tuple(d2.shape)}, "
-            f"valid2 {tuple(valid2.shape)}"
+            f"valid2 {tuple(valid2.shape)}, valid1 {None if valid1 is None else tuple(valid1.shape)}"
         )
     if d2.shape[-2] == 0:
         raise ValueError("match_top2: d2 has no columns")
-    if not (d1.device == d2.device == valid2.device):
+    if not (d1.device == d2.device == valid2.device) or (valid1 is not None and valid1.device != d1.device):
         raise ValueError(f"match_top2: inputs on {d1.device}, {d2.device}, {valid2.device}")
+
+
+def _blocked(d1: Tensor, d2: Tensor, fn) -> tuple:
+    """fn(pair slice) over blocks of pairs whose similarity matrix stays
+    under 256 MB (one pair at 8192 x 8192), the results concatenated along
+    the pairs."""
+    B, N1, N2 = d1.shape[0], d1.shape[1], d2.shape[1]
+    block = max(1, (1 << 26) // max(N1 * N2, 1))
+    outs = [fn(slice(b0, b0 + block)) for b0 in range(0, B, block)]
+    return tuple(torch.cat(parts) for parts in zip(*outs))
 
 
 def match_top2_reference(d1: Tensor, d2: Tensor, valid2: Tensor) -> tuple[Tensor, Tensor, Tensor]:
     """Plain PyTorch version: an f32 matmul and `_best2`, blocked over the
-    pairs so that a block's similarity matrix stays under 256 MB (one pair
-    at 8192 x 8192). Returns (s1 f32, s2 f32, idx int32), each [..., N1]."""
+    pairs. Returns (s1 f32, s2 f32, idx int32), each [..., N1]."""
     _check(d1, d2, valid2)
     if d1.dim() == 2:
         return tuple(x[0] for x in match_top2_reference(d1[None], d2[None], valid2[None]))
-    B, N1, N2 = d1.shape[0], d1.shape[1], d2.shape[1]
-    block = max(1, (1 << 26) // max(N1 * N2, 1))
-    outs = []
-    for b0 in range(0, B, block):
-        sim = d1[b0 : b0 + block] @ d2[b0 : b0 + block].mT
-        s1, s2, idx = _best2(sim, valid2[b0 : b0 + block])
-        outs.append((s1, s2, idx.to(torch.int32)))
-    return tuple(torch.cat(parts) for parts in zip(*outs))
+
+    def block(sl):
+        s1, s2, idx = _best2(d1[sl] @ d2[sl].mT, valid2[sl])
+        return s1, s2, idx.to(torch.int32)
+
+    return _blocked(d1, d2, block)
+
+
+def match_top2_cross_reference(d1: Tensor, d2: Tensor, valid1: Tensor, valid2: Tensor):
+    """Plain PyTorch version of `match_top2_cross`: the f32 matmul, `_best2`
+    and the argmax over the valid rows of every column, blocked over the
+    pairs. Returns (s1 f32, s2 f32, idx int32) [..., N1] and back int32
+    [..., N2]."""
+    _check(d1, d2, valid2, valid1)
+    if d1.dim() == 2:
+        return tuple(x[0] for x in match_top2_cross_reference(d1[None], d2[None], valid1[None], valid2[None]))
+
+    def block(sl):
+        sim = d1[sl] @ d2[sl].mT
+        s1, s2, idx = _best2(sim, valid2[sl])
+        return s1, s2, idx.to(torch.int32), _best_rows(sim, valid1[sl]).to(torch.int32)
+
+    return _blocked(d1, d2, block)
 
 
 def split_columns(N2: int, tile: int, wanted: int) -> tuple[int, int]:
@@ -129,14 +171,45 @@ def match_top2(d1: Tensor, d2: Tensor, valid2: Tensor) -> tuple[Tensor, Tensor, 
     CUDA tensors launch the hand kernel (counted in `match_top2.launches`);
     CPU tensors take the plain version. Raises on anything else."""
     _check(d1, d2, valid2)
-    dev = d1.device
-    if dev.type == "cpu":
+    if d1.device.type == "cpu":
         return match_top2_reference(d1, d2, valid2)
-    if dev.type != "cuda":
-        raise ValueError(f"match_top2: unsupported device {dev}")
+    return _launched(d1, d2, valid2, None)
+
+
+def match_top2_cross(d1: Tensor, d2: Tensor, valid1: Tensor, valid2: Tensor):
+    """`match_top2` and the cross-check in one launch: (s1 f32, s2 f32, idx
+    int32) [..., N1] and back int32 [..., N2], the best row of every column
+    among the rows with valid1 > 0 (the lowest of equals; row 0 when no row
+    is valid), from the same similarities as idx. For L2-normalized rows
+    this is the plain version's argmax with invalid rows at -2.
+
+    CUDA tensors launch the hand kernel (counted in `match_top2.launches`);
+    CPU tensors take the plain version. Raises on anything else."""
+    _check(d1, d2, valid2, valid1)
+    if d1.device.type == "cpu":
+        return match_top2_cross_reference(d1, d2, valid1, valid2)
+    return _launched(d1, d2, valid2, valid1)
+
+
+def _launched(d1: Tensor, d2: Tensor, valid2: Tensor, valid1: Tensor | None):
+    """`launch` of the package's kernel on checked tensors, [N, D] ones as a
+    batch of one, counted in `match_top2.launches`."""
+    if d1.device.type != "cuda":
+        raise ValueError(f"match_top2: unsupported device {d1.device}")
     if d1.dim() == 2:
-        return tuple(x[0] for x in match_top2(d1[None], d2[None], valid2[None]))
-    lib = build()
+        args = (d1[None], d2[None], valid2[None], None if valid1 is None else valid1[None])
+        return tuple(x[0] for x in _launched(*args))
+    out = launch(build(), d1, d2, valid2, valid1)
+    with _lock:
+        match_top2.launches += 1
+    return out
+
+
+def launch(lib: ctypes.CDLL, d1: Tensor, d2: Tensor, valid2: Tensor, valid1: Tensor | None = None):
+    """One launch of `lib`'s float kernel on checked, batched CUDA tensors:
+    (s1, s2, idx), and back when valid1 is given (the cross-check's column
+    bests)."""
+    dev = d1.device
     if d1.shape[-1] != lib.match_top2_width():
         raise ValueError(f"match_top2: the kernel takes {lib.match_top2_width()}-wide descriptors")
     d1 = d1.contiguous()
@@ -145,23 +218,29 @@ def match_top2(d1: Tensor, d2: Tensor, valid2: Tensor) -> tuple[Tensor, Tensor, 
     if d1.data_ptr() % 16 or d2.data_ptr() % 16:
         raise ValueError("match_top2: descriptors must be 16-byte aligned")
     B, N1, N2 = d1.shape[0], d1.shape[1], d2.shape[1]
-    if B == 0 or N1 == 0:
-        return _outputs(dev, B, N1, 0)[:3]
-    # split the columns across blocks until ~4 blocks per SM are in flight
+    back = keys = None
+    if B == 0 or N1 == 0:  # no row: back is row 0 for every column
+        back = () if valid1 is None else (torch.zeros((B, N2), dtype=torch.int32, device=dev),)
+        return _outputs(dev, B, N1, 0)[:3] + back
+    if valid1 is not None:
+        valid1 = valid1.to(torch.float32).contiguous()
+        back = torch.empty((B, N2), dtype=torch.int32, device=dev)
+        keys = torch.full((B, N2), lib.match_top2_key_sentinel(), dtype=torch.int64, device=dev)
+    # one block runs per SM at a time: split the columns while the row
+    # blocks are fewer than two waves
     blocks = B * -(-N1 // lib.match_top2_tile_rows())
-    chunk, splits = split_columns(N2, lib.match_top2_tile_cols(), -(-4 * sm_count(dev) // blocks))
-    s1, s2, idx, part = _outputs(dev, B, N1, splits)
+    chunk, splits = split_columns(N2, lib.match_top2_tile_cols(), 2 * sm_count(dev) // blocks)
+    s1, s2, idx, part = _outputs(dev, B, N1, splits if splits > 1 else 0)
     with on_device(dev):
         err = lib.match_top2_launch(
-            d1.data_ptr(), N1, d2.data_ptr(), N2, valid2.data_ptr(), B, chunk, splits,
-            *part, s1.data_ptr(), s2.data_ptr(), idx.data_ptr(),
+            d1.data_ptr(), N1, d2.data_ptr(), N2, None if valid1 is None else valid1.data_ptr(),
+            valid2.data_ptr(), B, chunk, splits, *part, s1.data_ptr(), s2.data_ptr(), idx.data_ptr(),
+            None if keys is None else keys.data_ptr(), None if back is None else back.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"match_top2 kernel launch failed: cudaError {err}")
-    with _lock:
-        match_top2.launches += 1
-    return s1, s2, idx
+    return (s1, s2, idx) if back is None else (s1, s2, idx, back)
 
 
 match_top2.launches = 0
@@ -242,14 +321,12 @@ def match_top2_u8_reference(d1, d2, inv1, inv2, valid2, valid1=None):
     if d1.dim() == 2:
         args = (d1, d2, inv1, inv2, valid2, valid1)
         return tuple(x[0] for x in match_top2_u8_reference(*(None if a is None else a[None] for a in args)))
-    B, N1, N2 = d1.shape[0], d1.shape[1], d2.shape[1]
-    block = max(1, (1 << 26) // max(N1 * N2, 1))
-    outs = []
-    for b0 in range(0, B, block):
-        sl = slice(b0, b0 + block)
+
+    def block(sl):
         s1, s2, idx = _best2(similarity_u8(d1[sl], d2[sl], inv1[sl], inv2[sl]), valid2[sl])
-        outs.append((s1, s2, idx.to(torch.int32)))
-    s1, s2, idx = (torch.cat(parts) for parts in zip(*outs))
+        return s1, s2, idx.to(torch.int32)
+
+    s1, s2, idx = _blocked(d1, d2, block)
     if valid1 is not None:
         ok = valid1 > 0
         s1 = torch.where(ok, s1, torch.full_like(s1, -2.0))

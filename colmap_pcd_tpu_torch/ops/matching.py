@@ -9,9 +9,10 @@ Every function broadcasts over a leading batch of image pairs. On CUDA
 tensors `match_descriptors` (L2-normalized f32 descriptors) and
 `match_descriptors_u8` (the database's uint8 descriptors with their inverse
 norms, the matcher's path) run through the hand-written top-2 kernels K1
-(ops/match_kernel.py): once for the rows, once on the transpose for the
-cross-check, so the similarity matrix never exists in memory. On CPU
-tensors they take the plain matmul + `_best2`.
+(ops/match_kernel.py), so the similarity matrix never exists in memory:
+the float kernel forms the cross-check's column bests in the same launch as
+the rows; the uint8 kernel runs once for the rows and once on the
+transpose. On CPU tensors they take the plain matmul + `_best2`.
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .match_kernel import _best2, match_top2, match_top2_u8, similarity_u8
+from .match_kernel import _best2, _best_rows, match_top2, match_top2_cross, match_top2_u8, similarity_u8
 
 Tensor = torch.Tensor
 
@@ -62,13 +63,15 @@ def match_descriptors(
     """(match_idx [..., N1] int64 into d2, ok [..., N1] bool, sim [..., N1]
     best cosine similarity, the match quality PROSAC sampling consumes).
 
-    CUDA tensors launch K1 once for the rows and, with cross_check, once on
-    (d2, d1, valid1) for the best row of every column; CPU tensors compute
-    the similarity matrix and reduce it."""
+    CUDA tensors launch K1 once: with cross_check the fused launch that also
+    gives the best row of every column (`match_top2_cross`), without it the
+    rows alone; CPU tensors compute the similarity matrix and reduce it."""
     if d1.device.type == "cuda":
-        s1, s2, idx = match_top2(d1, d2, valid2)
+        if opts.cross_check:
+            s1, s2, idx, back = match_top2_cross(d1, d2, valid1, valid2)
+        else:
+            (s1, s2, idx), back = match_top2(d1, d2, valid2), None
         idx = idx.long()
-        back = match_top2(d2, d1, valid1)[2] if opts.cross_check else None
         return idx, _accept(s1, s2, idx, back, valid1, opts), s1
     return match_descriptors_reference(d1, d2, valid1, valid2, opts)
 
@@ -114,10 +117,7 @@ def match_descriptors_reference(d1, d2, valid1, valid2, opts: MatchingOptions = 
 def _match_similarity(sim: Tensor, valid1, valid2, opts: MatchingOptions):
     """(idx, ok, s1) of a similarity matrix [..., N1, N2] in memory."""
     s1, s2, idx = _best2(sim, valid2)
-    back = None
-    if opts.cross_check:
-        simT = torch.where(valid1[..., :, None] > 0, sim, torch.full_like(sim, -2.0))
-        back = torch.argmax(simT, dim=-2)  # [..., N2] best row per column
+    back = _best_rows(sim, valid1) if opts.cross_check else None
     return idx, _accept(s1, s2, idx, back, valid1, opts), s1
 
 
@@ -146,10 +146,7 @@ def match_guided(
     err = num / torch.clamp(den, min=1e-12)
     sim = torch.where(err < opts.guided_max_error**2, sim, torch.full_like(sim, -2.0))
     s1, s2, idx = _best2(sim, valid2)
-    back = None
-    if opts.cross_check:
-        simT = torch.where(valid1[..., :, None] > 0, sim, torch.full_like(sim, -2.0))
-        back = torch.argmax(simT, dim=-2)
+    back = _best_rows(sim, valid1) if opts.cross_check else None
     return idx, _accept(s1, s2, idx, back, valid1, opts) & (s1 > -1.5)
 
 

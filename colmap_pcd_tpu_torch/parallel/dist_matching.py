@@ -5,10 +5,10 @@ data-parallels matching with CPU worker threads over pair blocks
 (feature/matching.h:222-345); here a batch of B pairs is split into one
 contiguous block per mesh device, and each device matches its block with
 `ops/matching.match_descriptors`: on CUDA the float K1 kernel
-(`ops/match_kernel.match_top2`, batched over the block's pairs, once for
-the rows and once on the transpose for the cross-check), on the CPU its
-plain version. No collectives: every shard is launched before any result
-is fetched, so distinct cards overlap.
+(`ops/match_kernel.match_top2_cross`, batched over the block's pairs: one
+launch gives the rows and the cross-check), on the CPU its plain version.
+No collectives: every shard is launched before any result is fetched, so
+distinct cards overlap.
 """
 
 from __future__ import annotations

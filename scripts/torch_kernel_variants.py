@@ -10,6 +10,11 @@ part cut out or a tile constant changed, builds it like the real one
 (ops/cuda_build.py), binds it to the real wrapper and times the wrapper's
 launch alone, as one CUDA graph of 20 launches (device time, no host).
 
+  * K1 on floats (csrc/match_top2.cu) at the matcher's chunks at cap 2048
+    and cap 8192 (phase 4's): rows alone and fused with the cross-check, as
+    committed; the fused call without the column fold or without the row
+    fold (what each epilogue costs); the k loop unrolled 1, 4 and 8 deep;
+    and the SM clock and power draw while the fused call runs at cap 8192.
   * K1 on uint8 (csrc/match_top2_u8.cu) at the matcher's two chunks
     (B = 16 at cap 2048 with 1 500-2 048 valid, at cap 4096 with
     1 900-2 200 valid): as committed; without the epilogue's folds; without
@@ -22,7 +27,8 @@ launch alone, as one CUDA graph of 20 launches (device time, no host).
     and points per group of the few-queries scan; blocks per SM of the
     split. These variants stay right and are held against the plain version.
 
-With `--k2-library Q` it times only K2's library yardstick, blocked
+With `--float-k1` it times only the float K1's variants and stops. With
+`--k2-library Q` it times only K2's library yardstick, blocked
 `torch.cdist` + `argmin` (chip_smoke._cdist_argmin), once at Q queries
 against the pixel world's 504 000-point map, beside K2 on the same queries
 and the bound chip_smoke computes for that shape, and stops: at the fused
@@ -51,12 +57,21 @@ FOLDS = re.compile(r"(    fold\((lo|hi), fmaf\(\(float\)acc\[4 \* j \+ \d\][^\n]
 ONE_FOLD = ("    if (j == 0) fold(lo, fmaf((float)(acc[0] ^ acc[17] ^ acc[38] ^ acc[63]), "
             "inv_lo * c.x, c.y), col);\n")
 MMAS = "for (int k = 0; k < D / 32; ++k) wgmma_m64n128k32_u8("
+COL_FOLD = """          if (v > best) {
+            best = v;
+            bi = i;
+          }
+"""
+ROW_FOLD = "for (int i = 0; i < 8; ++i) fold(top[i], fmaf(acc[i][j], c.x, c.y), col0 + tx + 16 * j);"
+ONE_ROW_FOLD = "if (j == 0) fold(top[0], fmaf(acc[0][0], c.x, c.y), col0 + tx);"
+UNROLL = "#pragma unroll 2\n    for (int u = 0;"
 NO_MMAS = "for (int k = 0; k < 0; ++k) wgmma_m64n128k32_u8("
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--float-k1", action="store_true", help="time only the float K1's variants, then stop")
     ap.add_argument("--k2-library", type=int, metavar="Q", default=None,
                     help="time only K2's library yardstick (and K2) at Q queries, then stop")
     args = ap.parse_args(argv)
@@ -94,6 +109,36 @@ def main(argv=None) -> int:
                 text = re.sub(rf"(constexpr int {name} = )\d+;", rf"\g<1>{value};", text)
             return text
         return edit
+
+    # ------------------------------------------------------------ K1, float
+    rng = np.random.default_rng(args.seed + 3)
+    floats = {}
+    for label, shape in (("cap 2048", dict(B=16, N1=2048, N2=2048, n_lo=1500, n_hi=2048)),
+                         ("cap 8192", dict(B=16, N1=8192, N2=8192, n_lo=6000, n_hi=8192))):
+        floats[label] = tuple(torch.as_tensor(x, device=dev) for x in chip_smoke._k1_case(rng, **shape))
+    source_f32 = match_kernel.SOURCE
+
+    def time_f32(label: str, source: str, rows: bool = True):
+        lib = match_kernel.load(source)
+        ms = []
+        for k, (d1, d2, v1, v2) in floats.items():
+            if rows:
+                ms.append(f"{k} rows {chip_smoke._graph_ms(lambda: match_kernel.launch(lib, d1, d2, v2), 5):.4f}")
+            ms.append(f"{k} fused {chip_smoke._graph_ms(lambda: match_kernel.launch(lib, d1, d2, v2, v1), 5):.4f}")
+        print(f"[k1-f32] {label}: " + ", ".join(ms) + " ms", flush=True)
+
+    time_f32("as committed", source_f32)
+    clocks_under_load(floats["cap 8192"], match_kernel)
+    time_f32("no column fold", variant(source_f32, "f32_nocol", lambda t: t.replace(COL_FOLD, "")), rows=False)
+    time_f32("no row fold", variant(source_f32, "f32_norow", lambda t: t.replace(ROW_FOLD, ONE_ROW_FOLD)),
+             rows=False)
+    for depth in (1, 4, 8):
+        unrolled = f"#pragma unroll {depth}\n    for (int u = 0;"
+        time_f32(f"k loop unrolled {depth} deep",
+                 variant(source_f32, f"f32_unroll{depth}", lambda t: t.replace(UNROLL, unrolled)))
+    del floats
+    if args.float_k1:
+        return 0
 
     # ------------------------------------------------------------------ K1
     rng = np.random.default_rng(args.seed + 2)
@@ -160,6 +205,42 @@ def main(argv=None) -> int:
             time_k2(f"points split among threads: {pq} queries a block, groups of {pg}",
                     src, per_sm, 1 << 30)
     return 0
+
+
+def clocks_under_load(case, match_kernel, seconds: float = 3.0):
+    """The SM clock and power draw (nvidia-smi, every 100 ms) while the
+    float K1's fused call runs back to back for `seconds`, and the card's
+    f32 FMA peak at that clock (132 SMs x 128 lanes x 2 flops)."""
+    import subprocess
+    import time
+
+    import torch
+
+    d1, d2, v1, v2 = case
+    lib = match_kernel.build()
+    match_kernel.launch(lib, d1, d2, v2, v1)
+    torch.cuda.synchronize()
+    smi = subprocess.Popen(["nvidia-smi", "--query-gpu=clocks.sm,power.draw", "--format=csv,noheader,nounits",
+                            "-lms", "100"], stdout=subprocess.PIPE, text=True)
+    try:
+        t0, calls = time.perf_counter(), 0
+        while time.perf_counter() - t0 < seconds:
+            match_kernel.launch(lib, d1, d2, v2, v1)
+            calls += 1
+            if calls % 8 == 0:
+                torch.cuda.synchronize()
+        torch.cuda.synchronize()
+    finally:
+        smi.terminate()
+        out = smi.communicate(timeout=30)[0]
+    rows = [tuple(float(x) for x in line.split(",")) for line in out.strip().splitlines()[2:-1]]
+    mhz = sorted(r[0] for r in rows)
+    watts = sorted(r[1] for r in rows)
+    med = mhz[len(mhz) // 2]
+    print(f"[k1-f32] under the fused call at cap 8192 ({calls} calls, {len(rows)} samples): SM clock "
+          f"{mhz[0]:.0f}-{mhz[-1]:.0f} MHz (median {med:.0f}), power {watts[0]:.1f}-{watts[-1]:.1f} W "
+          f"(median {watts[len(watts) // 2]:.1f}); f32 FMA peak at the median clock "
+          f"{132 * 128 * 2 * med * 1e6 / 1e12:.1f} TFLOP/s", flush=True)
 
 
 def k2_library(Q: int, seed: int) -> int:

@@ -113,6 +113,72 @@ def test_match_kernel_matches_plain_version(cuda_device):
     assert int(ok.sum()) > 1000
 
 
+@pytest.mark.parametrize("B,n1,n2", [(16, 1024, 1024), (1, 1000, 1537), (1, 300, 8200), (3, 40, 70)])
+def test_match_kernel_cross_matches_plain_version(cuda_device, B, n1, n2):
+    """The fused launch (rows and the cross-check's column bests) against its
+    plain twin, with exact duplicate rows and columns (ties to the lowest
+    index), invalid rows and columns, B = 1 and sizes off the 128 tiles:
+    rows bit-identical to the rows-only launch and within 1e-6 of the plain
+    version, column bests equal wherever a column's best and second-best
+    valid rows differ by more than 1e-6, and no invalid row ever chosen."""
+    rng = np.random.default_rng(n1 + n2)
+    d1 = rng.normal(size=(B, n1, 128)) ** 2
+    d2 = d1[:, rng.integers(0, n1, n2)] + rng.normal(0, 0.02, (B, n2, 128))
+    d2[:, n2 // 2 : n2 // 2 + n2 // 8] = d2[:, : n2 // 8]  # duplicate columns
+    d1[:, n1 // 2 : n1 // 2 + n1 // 8] = d1[:, : n1 // 8]  # duplicate rows
+    d1 = np.maximum(d1, 0.0)
+    d2 = np.maximum(d2, 0.0)
+    d1 /= np.linalg.norm(d1, axis=-1, keepdims=True)
+    d2 /= np.linalg.norm(d2, axis=-1, keepdims=True)
+    v1 = (rng.uniform(size=(B, n1)) > 0.2).astype(np.float32)
+    v2 = (rng.uniform(size=(B, n2)) > 0.2).astype(np.float32)
+    v1[0, : n1 // 8] = 1.0  # the lower twins vote
+    T = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=cuda_device)  # noqa: E731
+    d1t, d2t, v1t, v2t = T(d1), T(d2), T(v1), T(v2)
+    before = match_kernel.match_top2.launches
+    s1, s2, idx, back = match_kernel.match_top2_cross(d1t, d2t, v1t, v2t)
+    torch.cuda.synchronize()
+    assert match_kernel.match_top2.launches == before + 1
+    f1, f2, fidx = match_kernel.match_top2(d1t, d2t, v2t)
+    assert torch.equal(s1, f1) and torch.equal(s2, f2) and torch.equal(idx, fidx)
+    r1, r2, ridx, rback = match_kernel.match_top2_cross_reference(d1t, d2t, v1t, v2t)
+    assert float((s1 - r1).abs().max()) <= 1e-6 and float((s2 - r2).abs().max()) <= 1e-6
+    sep = (r1 - r2) > 1e-6
+    assert bool((idx[sep] == ridx[sep]).all())
+    bt1, bt2, _ = match_kernel.match_top2_reference(d2t, d1t, v1t)
+    col_sep = (bt1 - bt2) > 1e-6
+    assert bool((back[col_sep] == rback[col_sep]).all())
+    assert bool((torch.gather(v1t, -1, back.long()) > 0).all())
+    # a duplicated column's best row among twins is the lowest: the twins'
+    # similarities are equal, so no column picks the upper twin of a lower one
+    twin = back[0].long() - n1 // 2
+    has_twin = (twin >= 0) & (twin < n1 // 8)
+    assert not bool((has_twin & (d1t[0, twin.clamp(min=0)] == d1t[0, back[0].long()]).all(-1)).any())
+
+
+def test_match_descriptors_cross_check_is_one_launch(cuda_device):
+    """A cross-checked match_descriptors launches the float K1 once (the
+    fused launch), one without the cross-check once too; no valid row gives
+    back row 0 for every column, as the plain argmax over all -2 does."""
+    rng = np.random.default_rng(11)
+    d = rng.normal(size=(2, 500, 128)) ** 2
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    d1 = torch.as_tensor(d[0], dtype=torch.float32, device=cuda_device)
+    d2 = torch.as_tensor(d[1], dtype=torch.float32, device=cuda_device)
+    v = torch.ones(500, device=cuda_device)
+    r1, r2, _ = match_kernel.match_top2_reference(d1, d2, v)
+    sep = (r1 - r2) > 1e-6
+    for cross_check in (True, False):
+        opts = matching.MatchingOptions(cross_check=cross_check)
+        before = match_kernel.match_top2.launches
+        idx, ok, _ = matching.match_descriptors(d1, d2, v, v, opts)
+        assert match_kernel.match_top2.launches == before + 1
+        ridx, rok, _ = matching.match_descriptors_reference(d1, d2, v, v, opts)
+        assert int(((ok != rok) & sep).sum()) == 0 and torch.equal(idx[sep], ridx[sep])
+    *_, back = match_kernel.match_top2_cross(d1, d2, torch.zeros(500, device=cuda_device), v)
+    assert int(back.abs().max()) == 0
+
+
 def test_sequential_matcher_on_gpu_goes_through_the_kernel(cuda_device, tmp_path):
     """`sequential_matcher` on the GPU launches the uint8 K1 and writes
     precise verified matches."""

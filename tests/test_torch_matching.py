@@ -93,6 +93,133 @@ def test_top2_wrapper_checks_inputs():
         match_kernel.match_top2(d, torch.zeros((0, 128)), torch.ones(0))
 
 
+def _sift_like_pairs(rng, B, n1, n2, dup=True):
+    """Unit SIFT-like descriptors for B pairs (non-negative, as chip_smoke's
+    `_k1_case` makes them): d2 holds noisy copies of three quarters of d1's
+    rows in another order plus fresh ones; with `dup`, exact duplicates of the first eighth
+    of the rows and of the columns sit in the upper half (ties); ragged
+    valid masks with holes."""
+    d1 = np.empty((B, n1, 128), np.float32)
+    d2 = np.empty((B, n2, 128), np.float32)
+    v1 = (rng.uniform(size=(B, n1)) > 0.15).astype(np.float32)
+    v2 = (rng.uniform(size=(B, n2)) > 0.15).astype(np.float32)
+    for b in range(B):
+        base = rng.normal(size=(n1 + n2, 128)) ** 2
+        a = base[:n1] + rng.normal(0, 0.02, (n1, 128))
+        shared = min(n1, n2) * 3 // 4
+        src = np.concatenate([base[rng.permutation(n1)[:shared]], base[n1 : n1 + n2 - shared]])
+        c = src[rng.permutation(n2)] + rng.normal(0, 0.02, (n2, 128))
+        if dup:
+            a[n1 // 2 : n1 // 2 + n1 // 8] = a[: n1 // 8]
+            c[n2 // 2 : n2 // 2 + n2 // 8] = c[: n2 // 8]
+        a, c = np.maximum(a, 0.0), np.maximum(c, 0.0)
+        d1[b] = a / np.linalg.norm(a, axis=-1, keepdims=True)
+        d2[b] = c / np.linalg.norm(c, axis=-1, keepdims=True)
+        v1[b, rng.integers(n1 * 3 // 4, n1 + 1):] = 0.0
+        v2[b, rng.integers(n2 * 3 // 4, n2 + 1):] = 0.0
+        v1[b, : n1 // 8] = 1.0  # the lower twins take part
+        v2[b, : n2 // 8] = 1.0
+    return d1, d2, v1, v2
+
+
+@pytest.mark.parametrize("n1,n2", [(200, 150), (97, 256)])
+def test_top2_cross_reference_matches_jax(n1, n2):
+    """The fused call's plain twin against the JAX package on the same
+    inputs, sizes off the CUDA kernel's 128 tiles: s1, s2 within 1e-6 (f32
+    sums in another order), idx and back (the best valid row of every
+    column, invalid rows at -2) equal wherever best and second best differ
+    by more than 1e-6 or are exact twins (ties go to the lowest index in
+    both); the accept decisions of match_descriptors equal to the JAX
+    match_descriptors and to its Pallas K1 run in interpret mode (rows at a
+    near-tie or within 1e-6 of a threshold excepted)."""
+    rng = np.random.default_rng(n1 * n2)
+    B = 2
+    d1, d2, v1, v2 = _sift_like_pairs(rng, B, n1, n2)
+    s1, s2, idx, back = (x.numpy() for x in match_kernel.match_top2_cross_reference(T(d1), T(d2), T(v1), T(v2)))
+    assert idx.dtype == np.int32 and back.dtype == np.int32 and back.shape == (B, n2)
+    opts_t, opts_j = matching_t.MatchingOptions(), matching_j.MatchingOptions()
+    ok_t = matching_t.match_descriptors(T(d1), T(d2), T(v1), T(v2), opts_t)[1].numpy()
+    for b in range(B):
+        sim = jnp.asarray(d1[b]) @ jnp.asarray(d2[b]).T
+        j1, j2, ji = (np.asarray(x) for x in matching_j._best2(sim, jnp.asarray(v2[b])))
+        jback = np.asarray(jnp.argmax(jnp.where(jnp.asarray(v1[b])[:, None] > 0, sim, -2.0), axis=0))
+        np.testing.assert_allclose(s1[b], j1, atol=SIM_ATOL)
+        np.testing.assert_allclose(s2[b], j2, atol=SIM_ATOL)
+        rows = ((j1 - j2) > SIM_ATOL) | (j1 == j2)
+        np.testing.assert_array_equal(idx[b][rows], ji[rows])
+        simT = np.where(v1[b][:, None] > 0, np.asarray(sim), -2.0)
+        top2 = -np.sort(-simT, axis=0)[:2]
+        cols = ((top2[0] - top2[1]) > SIM_ATOL) | (top2[0] == top2[1])
+        np.testing.assert_array_equal(back[b][cols], jback[cols])
+        # exact twins: no pick has an equal, lower-indexed twin
+        for pick, other, n in ((idx[b], d2[b], n2), (back[b], d1[b], n1)):
+            twin = pick - n // 2
+            has_twin = (twin >= 0) & (twin < n // 8)
+            assert not (has_twin & (other[np.maximum(twin, 0)] == other[pick]).all(-1)).any()
+        assert ((j1 == j2) & (v1[b] > 0)).any()  # the data holds exact ties
+        # the accept decision, against both JAX routes
+        _, jok, _ = matching_j.match_descriptors(
+            jnp.asarray(d1[b]), jnp.asarray(d2[b]), jnp.asarray(v1[b]), jnp.asarray(v2[b]), opts_j)
+        _, pok = pallas_j.match_descriptors_pallas(
+            jnp.asarray(d1[b]), jnp.asarray(d2[b]), jnp.asarray(v1[b]), jnp.asarray(v2[b]), opts_j,
+            interpret=True)
+        exempt = _near_threshold(s1[b], s2[b], opts_t) | ~rows | ~np.take(cols, idx[b])
+        np.testing.assert_array_equal(ok_t[b][~exempt], np.asarray(jok)[~exempt])
+        np.testing.assert_array_equal(ok_t[b][~exempt], np.asarray(pok)[~exempt])
+        assert ok_t[b].sum() > n1 // 8  # not vacuous: twins fail the ratio test
+
+
+def test_top2_cross_wrapper_on_the_cpu():
+    """match_top2_cross on CPU tensors is its plain twin ([N, D] as a batch
+    of one); its rows equal match_top2's; no valid row gives back row 0, as
+    argmax over all -2 does; it checks valid1's shape."""
+    rng = np.random.default_rng(9)
+    d1, d2, v1, v2 = (T(x[0]) for x in _sift_like_pairs(rng, 1, 60, 90))
+    s1, s2, idx, back = match_kernel.match_top2_cross(d1, d2, v1, v2)
+    r = match_kernel.match_top2_cross_reference(d1[None], d2[None], v1[None], v2[None])
+    for got, want in zip((s1, s2, idx, back), r):
+        assert torch.equal(got, want[0])
+    for got, want in zip((s1, s2, idx), match_kernel.match_top2(d1, d2, v2)):
+        assert torch.equal(got, want)
+    assert int(match_kernel.match_top2_cross(d1, d2, torch.zeros(60), v2)[3].abs().max()) == 0
+    with pytest.raises(ValueError):
+        match_kernel.match_top2_cross(d1, d2, torch.ones(59), v2)
+
+
+def _rna_tf32(x: np.ndarray) -> np.ndarray:
+    """f32 to TF32 (10 mantissa bits), to nearest with ties away from zero,
+    as `cvt.rna.tf32.f32`: integer rounding of the magnitude bits."""
+    bits = x.astype(np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def test_3xtf32_split_holds_sim_atol_on_the_cpu():
+    """3xTF32 as a CPU emulation on unit SIFT-like descriptors at 1024 x
+    2048: hi = rna(x), lo = rna(x - hi); sim = sum_k lo1 hi2 + hi1 lo2 + hi1
+    hi2, the products exact, summed in float64 and, in the order a `wgmma`
+    chain would take (per 8-deep k step: lo*hi, hi*lo, hi*hi), in an f32
+    accumulator that rounds to nearest: both within SIM_ATOL = 1e-6 of the
+    float64 similarity of the f32 inputs. The split is sound; the card's
+    TF32 accumulator truncates instead, and lands 1.9-2.0e-6 away, which no
+    CPU emulation shows (scripts/torch_k1_numerics.py): so the float K1
+    keeps f32 FMAs."""
+    rng = np.random.default_rng(12)
+    d1, d2, _, _ = _sift_like_pairs(rng, 1, 1024, 2048, dup=False)
+    d1, d2 = d1[0], d2[0]
+    h1, h2 = _rna_tf32(d1), _rna_tf32(d2)
+    l1, l2 = _rna_tf32(d1 - h1), _rna_tf32(d2 - h2)
+    assert not (h1.view(np.uint32) & 0x1FFF).any() and not (l1.view(np.uint32) & 0x1FFF).any()
+    ref = d1.astype(np.float64) @ d2.astype(np.float64).T
+    H1, H2, L1, L2 = (x.astype(np.float64) for x in (h1, h2, l1, l2))
+    exact = L1 @ H2.T + H1 @ L2.T + H1 @ H2.T
+    assert np.abs(exact - ref).max() <= SIM_ATOL
+    acc = np.zeros(ref.shape, np.float32)
+    for k0 in range(0, 128, 8):
+        for a, c in ((L1, H2), (H1, L2), (H1, H2)):  # one k step's three products, exact
+            acc = (acc.astype(np.float64) + a[:, k0 : k0 + 8] @ c[:, k0 : k0 + 8].T).astype(np.float32)
+    assert np.abs(acc - ref).max() <= SIM_ATOL
+
+
 def test_normalize_descriptors_parity():
     rng = np.random.default_rng(5)
     u8 = rng.integers(0, 256, (50, 128)).astype(np.uint8)
