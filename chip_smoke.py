@@ -67,27 +67,35 @@ Phases, each printing its numbers on its own line:
      depth_project_batch over 8 of the resumed model's views, each over the
      map points in its frustum, on the card against the CPU;
   7. the overlapped front end: the first 30 of those images
-     (`--overlap-images`) through phase 7b's function with the known PINHOLE
-     reader: `run_overlapped_frontend` (extraction and matching threads)
-     feeding `IncrementalMapperController(pair_feed=...)` on the caller's
-     thread;
+     (`--overlap-images`) through bench_torch.run_bench, bench.py's default
+     branch, with the known PINHOLE reader: `run_overlapped_frontend`
+     (extraction and matching threads) feeding
+     `IncrementalMapperController(pair_feed=...)` on the caller's thread,
+     the corridor map built inside the timed window as bench.py builds it;
  7b. the reference feature scale, as the JAX package's bench.py runs it
-     with BENCH_REF_SCALE=1 (its default, overlapped branch): the pixel
-     world's trajectory over 100 views (`--ref-images`) rendered at
-     1280x960, f = 1000, through `run_overlapped_frontend` with 8192
-     features, first octave 0, 4 octaves, max image size 1280 (the reader's
-     defaults, as bench.py gives none), the sequential pairs at overlap 5
-     without the quadratic offsets and min_num_inliers 15, feeding
-     `IncrementalMapperController` whose model holds the PINHOLE camera
-     [1000, 1000, 640, 480], with bench.py's MapperOptions and the pose
-     prior of image 1, the launch counts zeroed just before it: keypoints
-     per image, pairs matched and verified, launches, the largest K1 cap
-     and K2 query count, the threads' and the mapper's seconds, frames
-     registered per second (and bench.py's second-half rate), registered
-     count, ATE beside the JAX package's 11.8 mm, scale error, peak memory,
-     BA solves and LM host syncs per solve, the PHASES report; then K2
-     timed at the run's largest query count (the model's points against the
-     map) beside its plain version, the library call and the host kd-tree;
+     with BENCH_REF_SCALE=1 (its default, overlapped branch), through
+     bench_torch.run_bench: the pixel world's trajectory over 100 views
+     (`--ref-images`) rendered at 1280x960, f = 1000, through
+     `run_overlapped_frontend` with 8192 features, first octave 0, 4
+     octaves, max image size 1280 (the reader's defaults, as bench.py gives
+     none), the sequential pairs at overlap 5 without the quadratic offsets
+     and min_num_inliers 15, feeding `IncrementalMapperController` whose
+     model holds the PINHOLE camera [1000, 1000, 640, 480], with bench.py's
+     MapperOptions and the pose prior of image 1, the launch counts zeroed
+     just before it: keypoints per image, pairs matched and verified,
+     launches, the largest K1 cap and K2 query count, the threads' and the
+     mapper's seconds, frames registered per second (and bench.py's
+     second-half rate), registered count, ATE beside the JAX package's
+     11.8 mm, scale error, peak memory, BA solves and LM host syncs per
+     solve, the PHASES report; then K2 timed at the run's largest query
+     count (the model's points against the map) beside its plain version,
+     the library call and the host kd-tree;
+ 7c. bench.py's sequential branch (BENCH_OVERLAP=0) through
+     bench_torch.run_bench on phase 7's 30 views with the reader's
+     defaults: `run_feature_extractor`, `run_sequential_matcher` at overlap
+     5 without the quadratic offsets, the pairs with >= 15 inlier matches
+     into the graph, the lidar controller; then its result line built by
+     bench_torch.bench_line and printed;
   8. the descriptor world: a synthetic corridor world (30 images, 0.8 m
      step, ~2 000 keypoints per image plus 5% distractors, each with a
      SIFT-like uint8 descriptor) written to a COLMAP database with no
@@ -170,7 +178,9 @@ Phases, each printing its numbers on its own line:
      registered with ATE < 0.10 m and scale error < 2%, and so does the
      resumed model (with more images than its snapshot; depth_project_batch
      on the card finding the CPU's features, depths within 1e-5 m), and the
-     overlapped run (with no error in its feed), the reference-scale run
+     overlapped run (with no error in its feed), the sequential run (its
+     line holding bench.py's keys, read from bench.py's source, but `mfu`
+     and `model_tflops`, at the same bars), the reference-scale run
      (no error in its feed; the uint8 K1 launched at the chunk cap that
      its largest keypoint count gives, K2 launched by its mapper, its SIFT
      on the card agreeing with the CPU's in phase 5) and the descriptor
@@ -222,13 +232,15 @@ import json
 import multiprocessing
 import os
 import shutil
-import subprocess
 import sys
 import tempfile
 import time
 from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 
 import numpy as np
+
+from bench_torch import (DROPPED_KEYS, LIGHT_SCALE, REF_SCALE, STEP, bench_line, bench_py_line_keys, counted,
+                         kernel_counters, mapper_numbers, nvidia_smi, render_world, reset_phases, run_bench)
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
@@ -276,23 +288,14 @@ FUSED_P2P_M, MESH_P2P_M = 0.021757 * 1.25, 0.325843 * 1.25
 
 # the pixel world (the JAX package's bench at its light scale) and the
 # accuracy that package recorded on it (BENCH_r05.json)
-PIXEL_W, PIXEL_H, PIXEL_F, PIXEL_STEP = 640, 480, 500.0, 0.8
-PIXEL_FEATURES, PIXEL_OCTAVES = 2048, 3
-REF_W, REF_H, REF_F, REF_FEATURES, REF_OCTAVES = 1280, 960, 1000.0, 8192, 4
-# (width, height, focal, features, octaves) of the JAX bench's two scales
-REF_SCALE = (REF_W, REF_H, REF_F, REF_FEATURES, REF_OCTAVES)
-LIGHT_SCALE = (PIXEL_W, PIXEL_H, PIXEL_F, PIXEL_FEATURES, PIXEL_OCTAVES)
+PIXEL_W, PIXEL_H, PIXEL_F, PIXEL_FEATURES, PIXEL_OCTAVES = LIGHT_SCALE
+PIXEL_STEP = STEP
+REF_W, REF_H, REF_F, REF_FEATURES, REF_OCTAVES = REF_SCALE
 REFERENCE_ATE_MM = 18.0
 # the JAX package's accuracy at the reference feature scale
 # (BENCH_REFSCALE_r5.json) and on 450 views (BENCH_450_r5.json)
 REFERENCE_REF_SCALE_ATE_MM, REFERENCE_450_ATE_MM = 11.8, 16.8
-# the lidar mapper's options on SIFT features, as that bench sets them
-# (bench.py:184-191), for the controller and for the mapper command
-BENCH_MAPPER_OPTIONS = dict(
-    if_add_lidar_constraint=True, init_image_id1=1, init_image_id2=2, init_min_num_inliers=40,
-    abs_pose_min_num_inliers=12, abs_pose_min_inlier_ratio=0.15, num_ransac_hypotheses=2048,
-    filter_max_reproj_error=6.0,
-)
+# bench_torch.BENCH_MAPPER_OPTIONS as the mapper command's flags
 PIXEL_MAPPER_FLAGS = (
     "--Mapper.init_min_num_inliers", "40", "--Mapper.abs_pose_min_num_inliers", "12",
     "--Mapper.abs_pose_min_inlier_ratio", "0.15", "--Mapper.filter_max_reproj_error", "6.0",
@@ -322,14 +325,6 @@ TF32X3_FLOPS = 495e12 / 3
 
 def _log(msg: str):
     print(msg, flush=True)
-
-
-def _nvidia_smi() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    )
-    return out.stdout.strip().splitlines()[0]
 
 
 def _cuda_ms(fn, reps: int) -> float:
@@ -757,43 +752,11 @@ def check_match_kernel(rng) -> dict:
     return {"match_top2": f32, "match_top2_u8": u8}
 
 
-def _counted(fn, counters: dict):
-    """fn() with the given launch counters zeroed just before it and read
-    just after; host-clock seconds end at a device sync. Returns (fn's
-    value, seconds, launches)."""
-    import torch
-
-    for wrapper in counters.values():
-        wrapper.launches = 0
-        for record in ("max_queries", "max_cap"):  # the largest shapes launched
-            if hasattr(wrapper, record):
-                setattr(wrapper, record, 0)
-    t0 = time.perf_counter()
-    out = fn()
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    return out, seconds, {name: wrapper.launches for name, wrapper in counters.items()}
-
-
 def _run_cli(argv: list, counters: dict) -> tuple[int, float, dict]:
-    """cli.main(argv) under `_counted`."""
+    """cli.main(argv) under `counted`."""
     from colmap_pcd_tpu_torch import cli
 
-    return _counted(lambda: cli.main(argv), counters)
-
-
-def _kernel_counters() -> dict:
-    from colmap_pcd_tpu_torch.ops import match_kernel, nn_kernel
-
-    return {"match_top2": match_kernel.match_top2, "match_top2_u8": match_kernel.match_top2_u8,
-            "nn_argmin": nn_kernel.nn_argmin}
-
-
-def _reset_phases():
-    from colmap_pcd_tpu_torch.utils.logging_utils import PHASES
-
-    PHASES.totals.clear()
-    PHASES.counts.clear()
+    return counted(lambda: cli.main(argv), counters)
 
 
 def _read_model(out_dir: str, gt) -> dict:
@@ -805,23 +768,6 @@ def _read_model(out_dir: str, gt) -> dict:
     out = max(recs, key=lambda r: r.num_reg_images)
     return {"models": len(recs), "registered": out.num_reg_images, "ate_m": ate_rmse(out, gt),
             "scale_err": scale_error(out, gt)}
-
-
-def _mapper_numbers(seconds: float, registered: int) -> dict:
-    """What the mapper's PHASES counters and the allocator say of a run."""
-    import torch
-
-    from colmap_pcd_tpu_torch.utils.logging_utils import PHASES
-
-    solves = PHASES.counts.get("ba_solves", 0)
-    return {
-        "seconds": seconds,
-        "frames_per_s": registered / seconds,
-        "peak_mem_bytes": torch.cuda.max_memory_allocated(),
-        "ba_solves": solves,
-        "lm_syncs_per_solve": PHASES.counts.get("ba_lm_syncs", 0) / max(solves, 1),
-        "phases": PHASES.report(),
-    }
 
 
 def render_pixel_world(args, tmp: str) -> dict:
@@ -986,7 +932,7 @@ def run_pixel_world(world: dict, tmp: str) -> dict:
     from colmap_pcd_tpu_torch.utils.config import SiftMatchingConfig
     from synthetic_torch import mapper_argv
 
-    kernels = _kernel_counters()
+    kernels = kernel_counters()
     paths = world["paths"]
     cfg = _extraction_config()
     rc, e_seconds, _ = _run_cli([
@@ -1007,15 +953,15 @@ def run_pixel_world(world: dict, tmp: str) -> dict:
 
     # overlap 5 without the quadratic offsets, which the CLI's command always
     # adds: the matcher's own entry point takes the switch
-    _reset_phases()
-    n_verified, m_seconds, m_launches = _counted(
+    reset_phases()
+    n_verified, m_seconds, m_launches = counted(
         lambda: run_sequential_matcher(paths["database"], SiftMatchingConfig(min_num_inliers=15),
                                        overlap=5, quadratic_overlap=False), kernels)
     db = Database(paths["database"])
     n_tried = len(db.all_two_view_pair_ids())
     db.close()
 
-    _reset_phases()
+    reset_phases()
     torch.cuda.reset_peak_memory_stats()
     out_dir = os.path.join(tmp, "pixel_model")
     # the snapshots the resume phase starts from (a model every 25 registrations)
@@ -1026,7 +972,7 @@ def run_pixel_world(world: dict, tmp: str) -> dict:
     if rc != 0:
         raise RuntimeError(f"mapper (pixel world) exited with {rc}")
     res = _read_model(out_dir, world["gt"])
-    res.update(_mapper_numbers(seconds, res["registered"]))
+    res.update(mapper_numbers(seconds, res["registered"]))
     res.update(keypoints=keypoints, cameras=cameras, extract_seconds=e_seconds,
                matcher_seconds=m_seconds, matcher_launches=m_launches, pairs_verified=n_verified,
                pairs_tried=n_tried, mapper_launches=launches, model_root=out_dir, snapshot_root=snapshots)
@@ -1115,8 +1061,8 @@ def run_resume(world: dict, px: dict, tmp: str) -> dict:
     half = len(world["gt"]) / 2
     start = min(snaps, key=lambda d: (abs(snaps[d] - half), d))
     model = os.path.join(root, start)
-    kernels = _kernel_counters()
-    _reset_phases()
+    kernels = kernel_counters()
+    reset_phases()
     torch.cuda.reset_peak_memory_stats()
     out_dir = os.path.join(tmp, "resumed_model")
     rc, seconds, launches = _run_cli(
@@ -1124,122 +1070,15 @@ def run_resume(world: dict, px: dict, tmp: str) -> dict:
     if rc != 0:
         raise RuntimeError(f"mapper --input_path exited with {rc}")
     res = _read_model(out_dir, world["gt"])
-    res.update(_mapper_numbers(seconds, res["registered"] - snaps[start]))
+    res.update(mapper_numbers(seconds, res["registered"] - snaps[start]))
     res.update(snapshots=sorted(snaps.values()), snapshot_registered=snaps[start], launches=launches,
                max_queries=nn_kernel.nn_argmin.max_queries)
     res["depth_project_batch"] = _depth_project_batch_check(os.path.join(out_dir, "0"), world)
     return res
 
 
-def render_reference_world(n_images: int, tmp: str, scale=REF_SCALE) -> dict:
-    """The reference-scale world's files (bench.py with BENCH_REF_SCALE=1):
-    the pixel world's trajectory over n_images views rendered at 1280x960,
-    f = 1000, or at another `scale` (threaded over images), and its
-    corridor map."""
-    from synthetic_torch import build_corridor_map, make_trajectory, render_images
-
-    t0 = time.perf_counter()
-    gt = make_trajectory(n_images, PIXEL_STEP)
-    img_dir = os.path.join(tmp, "images")
-    os.makedirs(img_dir)
-    render_images(img_dir, gt, *scale[:3], workers=4)
-    pts, nrm = build_corridor_map(np.random.default_rng(0), length=n_images * PIXEL_STEP + 25)
-    return {"gt": gt, "images": img_dir, "map_points": pts, "map_normals": nrm, "scale": scale,
-            "seconds": time.perf_counter() - t0}
-
-
-def run_overlapped_bench(world: dict, tmp: str, pinhole_reader: bool = False) -> dict:
-    """bench.py's default (overlapped) run through the port's entry points,
-    on a world of `render_reference_world`'s form: run_overlapped_frontend
-    with the world's SIFT options, the sequential pairs at overlap 5 without
-    the quadratic offsets and min_num_inliers 15, feeding
-    IncrementalMapperController on the caller's thread, whose model holds
-    the known PINHOLE camera, with bench.py's MapperOptions and the pose
-    prior of image 1. The database's camera comes from the reader's
-    defaults, as bench.py gives none (the matcher verifies with it), or is
-    the known PINHOLE with `pinhole_reader`. Phase 7 runs it on the pixel
-    world's first views with the known reader, phase 7b on the
-    reference-scale world. The model is returned as "rec"."""
-    import torch
-
-    from colmap_pcd_tpu_torch.models.controllers import ControllerOptions, IncrementalMapperController
-    from colmap_pcd_tpu_torch.models.correspondence_graph import CorrespondenceGraph
-    from colmap_pcd_tpu_torch.models.database import Database
-    from colmap_pcd_tpu_torch.models.feature_pipeline import ImageReaderConfig
-    from colmap_pcd_tpu_torch.models.incremental_mapper import MapperOptions
-    from colmap_pcd_tpu_torch.models.lidar_map import LidarMap
-    from colmap_pcd_tpu_torch.models.overlap import run_overlapped_frontend
-    from colmap_pcd_tpu_torch.models.reconstruction import Camera, Reconstruction
-    from colmap_pcd_tpu_torch.utils.config import SiftExtractionConfig, SiftMatchingConfig
-    from synthetic_torch import ate_rmse, scale_error
-
-    gt, img_dir = world["gt"], world["images"]
-    W, H, F, features, octaves = world["scale"]
-    database = os.path.join(tmp, "overlapped.db")
-    reader = (ImageReaderConfig(camera_model="PINHOLE", camera_params=f"{F},{F},{W / 2},{H / 2}")
-              if pinhole_reader else ImageReaderConfig())
-    extraction = SiftExtractionConfig(max_num_features=features, first_octave=0, num_octaves=octaves,
-                                      max_image_size=W)
-    opts = MapperOptions(**BENCH_MAPPER_OPTIONS)
-    lmap = LidarMap.from_arrays(world["map_points"], world["map_normals"], device="cuda")
-    kernels = _kernel_counters()
-    rec = Reconstruction()
-    rec.add_camera(Camera(1, 1, W, H, np.asarray([F, F, W / 2, H / 2])))
-    reg_times = []  # (registered, seconds since the mapper started) per registration
-    _reset_phases()
-    torch.cuda.reset_peak_memory_stats()
-
-    def drive():
-        feed, t_extract, t_match = run_overlapped_frontend(
-            database, img_dir, extraction, SiftMatchingConfig(min_num_inliers=15), reader, overlap=5,
-            quadratic_overlap=False,
-        )
-        ctl = IncrementalMapperController(
-            rec, CorrespondenceGraph(), opts, ControllerOptions(verbose=False, image_path=img_dir),
-            lidar_map=lmap, pose_priors={1: gt[0]}, pair_feed=feed,
-        )
-        t0 = time.perf_counter()
-        ctl.callbacks.append(lambda _iid: reg_times.append((rec.num_reg_images, time.perf_counter() - t0)))
-        ok = ctl.reconstruct()
-        mapper_s = time.perf_counter() - t0
-        t_extract.join(timeout=300)
-        t_match.join(timeout=300)
-        if t_extract.is_alive() or t_match.is_alive():
-            raise RuntimeError("the overlapped front end's threads did not end")
-        return ok, feed, mapper_s
-
-    (ok, feed, mapper_s), seconds, launches = _counted(drive, kernels)
-    max_q, max_cap = kernels["nn_argmin"].max_queries, kernels["match_top2_u8"].max_cap
-    if feed.error is not None:
-        raise RuntimeError(f"the overlapped front end failed: {feed.error!r}")
-    if not ok:
-        raise RuntimeError("the mapper behind the overlapped front end did not initialize")
-    db = Database(database)
-    keypoints = [db.read_keypoints(i).shape[0] for i in sorted(db.images())]
-    db_cameras = db.cameras()
-    db.close()
-    # bench.py's steady rate: registrations per second over the second half
-    mid = len(reg_times) // 2
-    steady = ((reg_times[-1][0] - reg_times[mid][0]) / (reg_times[-1][1] - reg_times[mid][1])
-              if len(reg_times) >= 4 and reg_times[-1][1] > reg_times[mid][1] else float("nan"))
-    if max_q <= 0:
-        raise AssertionError("the mapper behind the overlapped front end never launched K2")
-    res = {
-        "registered": rec.num_reg_images, "ate_m": ate_rmse(rec, gt), "scale_err": scale_error(rec, gt),
-        "wall_seconds": seconds, "steady_frames_per_s": steady,
-        "extract_seconds": feed.extract_s, "match_seconds": feed.match_s,
-        "match_busy_seconds": feed.match_busy_s, "pairs_matched": feed.n_pairs_matched,
-        "pairs_verified": feed.n_pairs_verified, "launches": launches, "keypoints": keypoints,
-        "db_cameras": db_cameras, "camera": rec.cameras[1].params.tolist(), "max_queries": max_q,
-        "max_cap": max_cap, "points": len(rec.points3D), "map_points": world["map_points"].shape[0],
-        "rec": rec,
-    }
-    res.update(_mapper_numbers(mapper_s, rec.num_reg_images))
-    return res
-
-
-def _log_reference_scale(rs: dict, reference_ate_mm: float = REFERENCE_REF_SCALE_ATE_MM,
-                         tag: str = "reference scale"):
+def _log_reference_scale(rs: dict):
+    tag = "reference scale"
     kps, cam = rs["keypoints"], rs["db_cameras"][1]
     _log(f"[{tag}] {len(kps)} images, {min(kps)}-{max(kps)} keypoints per image; the matcher's "
          f"camera (the reader's default) {cam['model_id']} {np.round(cam['params'], 3).tolist()}, the "
@@ -1251,7 +1090,7 @@ def _log_reference_scale(rs: dict, reference_ate_mm: float = REFERENCE_REF_SCALE
          f"{rs['seconds']:.3f} s, {rs['frames_per_s']:.4f} frames registered/s ({rs['steady_frames_per_s']:.4f} "
          f"over the second half, bench.py's rate)")
     _log(f"[{tag}] registered {rs['registered']}/{len(kps)}, ATE {rs['ate_m'] * 1e3:.3f} mm (the "
-         f"JAX package recorded {reference_ate_mm} mm at this scale), scale error "
+         f"JAX package recorded {REFERENCE_REF_SCALE_ATE_MM} mm at this scale), scale error "
          f"{rs['scale_err']:.6f}, {rs['points']} points; peak device memory {rs['peak_mem_bytes'] / 2**20:.1f} "
          f"MiB, {rs['ba_solves']} BA solves, {rs['lm_syncs_per_solve']:.2f} LM host syncs per solve")
     _log(f"[{tag}] phases (mapper and the matcher thread):\n" + rs["phases"])
@@ -1267,6 +1106,19 @@ def _require_reference_scale(rs: dict, n_images: int):
     want = 1 << max(6, int(np.ceil(np.log2(max(rs["keypoints"])))))
     if rs["max_cap"] != want:
         raise AssertionError(f"reference scale: the uint8 K1's largest cap {rs['max_cap']}, not {want}")
+
+
+def _require_bench_line(res: dict, line: dict, n_images: int):
+    """Phase 7c's bars: the pixel world's on the run and on its line, whose
+    keys are bench.py's result line's, read from its source, but the two
+    FLOP fields."""
+    _require_model("sequential", res, n_images)
+    want = bench_py_line_keys() - set(DROPPED_KEYS)
+    if set(line) != want:
+        raise AssertionError(f"sequential: the bench line's keys differ from bench.py's: "
+                             f"{sorted(set(line) ^ want)}")
+    if line["registered"] < 0.95 * n_images or not line["ate_m"] < 0.10 or not line["value"] > 0:
+        raise AssertionError(f"sequential: bench line {line}")
 
 
 def run_long(args, world: dict, tmp: str) -> int:
@@ -1298,7 +1150,7 @@ def run_descriptor_world(args, tmp: str, rng) -> dict:
     from colmap_pcd_tpu_torch.utils.logging_utils import PHASES
     from synthetic_torch import make_descriptor_world, mapper_argv, match_precision_recall, write_world
 
-    kernels = _kernel_counters()
+    kernels = kernel_counters()
     n = args.descriptor_images
     t0 = time.perf_counter()
     rec, graph, lmap, gt, desc, point_ids = make_descriptor_world(
@@ -1311,7 +1163,7 @@ def run_descriptor_world(args, tmp: str, rng) -> dict:
          f"{len(graph.image_pairs())} pairs share points, built and written in "
          f"{time.perf_counter() - t0:.2f} s")
 
-    _reset_phases()
+    reset_phases()
     rc, m_seconds, m_launches = _run_cli(
         ["sequential_matcher", "--database_path", paths["database"],
          "--SequentialMatching.overlap", "5"], kernels,
@@ -1321,14 +1173,14 @@ def run_descriptor_world(args, tmp: str, rng) -> dict:
     pr = match_precision_recall(paths["database"], point_ids)
     m_syncs = PHASES.counts.get("linalg_syncs", 0)
 
-    _reset_phases()
+    reset_phases()
     torch.cuda.reset_peak_memory_stats()
     out_dir = os.path.join(tmp, "model")
     rc, seconds, launches = _run_cli(mapper_argv(paths, out_dir), kernels)
     if rc != 0:
         raise RuntimeError(f"mapper exited with {rc}")
     res = _read_model(out_dir, gt)
-    res.update(_mapper_numbers(seconds, res["registered"]))
+    res.update(mapper_numbers(seconds, res["registered"]))
     res.update(matcher_seconds=m_seconds, matcher_launches=m_launches, matcher_linalg_syncs=m_syncs,
                match=pr, mapper_launches=launches)
     return res
@@ -1343,7 +1195,7 @@ def run_classic_path(args, tmp: str) -> dict:
     from colmap_pcd_tpu_torch.ops import np_geom, solvers
     from synthetic_torch import classic_mapper_argv, make_descriptor_world, write_world
 
-    kernels = _kernel_counters()
+    kernels = kernel_counters()
     rec, graph, lmap, gt, desc, _ = make_descriptor_world(
         np.random.default_rng(args.seed + 11), n_images=args.classic_images,
         n_points=85 * args.classic_images, noise_px=0.2, step=1.0,
@@ -1516,7 +1368,7 @@ def run_sfm_tools(args, world: dict, px: dict, tmp: str) -> dict:
     from colmap_pcd_tpu_torch.utils.image import imread_rgb
     from synthetic_torch import ate_rmse, mapper_argv
 
-    kernels = _kernel_counters()
+    kernels = kernel_counters()
     paths, gt, n = world["paths"], world["gt"], args.n_images
     model = _largest_model_dir(px["model_root"])
     lidar = ["--Mapper.lidar_pointcloud_path", paths["lidar"]]
@@ -1731,7 +1583,7 @@ def run_retrieval(world: dict, tmp: str) -> dict:
 
     from colmap_pcd_tpu_torch.models.database import Database
 
-    kernels = _kernel_counters()
+    kernels = kernel_counters()
     database = world["paths"]["database"]
     res = {"commands": {}}
 
@@ -1962,7 +1814,7 @@ def run_rig_world(args, tmp: str) -> dict:
     try:
         rc, seconds, launches = _run_cli(["rig_bundle_adjuster", "--input_path", model, "--output_path", out,
                                           "--rig_config_path", cfg_path,
-                                          "--RigBundleAdjustment.refine_relative_poses", "1"], _kernel_counters())
+                                          "--RigBundleAdjustment.refine_relative_poses", "1"], kernel_counters())
     finally:
         for (owner, name), raw in zip(wrapped, originals):
             setattr(owner, name, raw)
@@ -2253,14 +2105,14 @@ def run_dense(args, world: dict, st: dict, tmp: str) -> dict:
     from colmap_pcd_tpu_torch.utils.logging_utils import PHASES
     from synthetic_torch import mapper_argv
 
-    kernels = _kernel_counters()
+    kernels = kernel_counters()
     paths = world["paths"]
     ws = os.path.join(tmp, "ws")
     rec = _dense_workspace(st["undistorted_workspace"], ws, args.dense_views)
     res = {"commands": {}, "views_registered": rec.num_reg_images}
 
     def run(label, argv):
-        _reset_phases()
+        reset_phases()
         torch.cuda.reset_peak_memory_stats()
         rc, seconds, launches = _run_cli(argv, kernels)
         if rc != 0:
@@ -2415,12 +2267,12 @@ def _sharded_mapper(world: dict, mesh, tmp: str) -> dict:
         out_dir = os.path.join(tmp, f"{label}_model")
         ctl = cli.mapper_controller(mapper_argv(paths, out_dir, *PIXEL_MAPPER_FLAGS)[1:], device.resolve("cuda"))
         ctl.mapper.dist_mesh = mesh_
-        _reset_phases()
+        reset_phases()
         torch.cuda.reset_peak_memory_stats()
-        manager, seconds, launches = _counted(ctl.run, _kernel_counters())
+        manager, seconds, launches = counted(ctl.run, kernel_counters())
         manager.write(out_dir)
         res = _read_model(out_dir, world["gt"][:n_views])
-        res.update(_mapper_numbers(seconds, res["registered"]), launches=launches,
+        res.update(mapper_numbers(seconds, res["registered"]), launches=launches,
                    ba_device_s=PHASES.totals.get("ba_device", 0.0))
         runs[label] = res
     res = runs["sharded"]
@@ -2450,9 +2302,9 @@ def _sharded_pool(world: dict, mesh) -> dict:
     pairs = [(i, j) for i in ids for j in ids if 0 < j - i <= 5]
     counter = {"match_top2": match_kernel.match_top2}
     sharded = dist_matching.MatchPool(descs, mesh=mesh, cap=1024)
-    (idx_s, ok_s), s_seconds, s_launches = _counted(lambda: sharded.match_pairs(pairs), counter)
+    (idx_s, ok_s), s_seconds, s_launches = counted(lambda: sharded.match_pairs(pairs), counter)
     one = dist_matching.MatchPool(descs, cap=1024, device="cuda:0")
-    (idx_1, ok_1), one_seconds, one_launches = _counted(lambda: one.match_pairs(pairs), counter)
+    (idx_1, ok_1), one_seconds, one_launches = counted(lambda: one.match_pairs(pairs), counter)
     return {"pairs": len(pairs), "matches": int(ok_s.sum()), "pairs_matched": int(ok_s.any(axis=1).sum()),
             "identical": bool(np.array_equal(ok_s, ok_1) and np.array_equal(idx_s, idx_1)),
             "seconds": s_seconds, "launches": s_launches["match_top2"],
@@ -2471,7 +2323,7 @@ def _sharded_stereo(st: dict, mesh, tmp: str, n_views: int = 10) -> dict:
     for label, kw in (("sharded", dict(mesh=mesh)), ("sequential", dict(device="cuda:0"))):
         ws = os.path.join(tmp, f"stereo_{label}")
         rec = _dense_workspace(st["undistorted_workspace"], ws, n_views)
-        n, seconds, _ = _counted(lambda: mvs.run_patch_match_stereo(ws, opts, rec=rec, **kw), {})
+        n, seconds, _ = counted(lambda: mvs.run_patch_match_stereo(ws, opts, rec=rec, **kw), {})
         runs[label] = (ws, rec, n, seconds)
     ws_s, rec, n_s, s_seconds = runs["sharded"]
     ws_q, _, n_q, q_seconds = runs["sequential"]
@@ -2499,7 +2351,7 @@ def run_sharded(args, world: dict, st: dict, tmp: str) -> dict:
     res["pool"] = _sharded_pool(world, mesh)
     res["stereo"] = _sharded_stereo(st, mesh, tmp)
     device = None if mesh.size == len(set(mesh.devices)) else "cuda:0"
-    res["dryrun"], res["dryrun_seconds"], _ = _counted(lambda: dryrun_multichip(mesh.size, device=device), {})
+    res["dryrun"], res["dryrun_seconds"], _ = counted(lambda: dryrun_multichip(mesh.size, device=device), {})
     return res
 
 
@@ -2567,7 +2419,7 @@ def main(argv=None) -> int:
     from colmap_pcd_tpu_torch.ops.cuda_build import BUILD_SECONDS
 
     # 1. environment
-    smi = _nvidia_smi()
+    smi = nvidia_smi()
     kind = torch.cuda.get_device_name(0)
     _log(f"[env] nvidia-smi: {smi}")
     _log(f"[env] torch {torch.__version__} cuda {torch.version.cuda} device {kind} "
@@ -2622,7 +2474,7 @@ def main(argv=None) -> int:
         k1 = check_match_kernel(np.random.default_rng(args.seed + 2))
         # the reference-scale world renders on the host while phases 5-7 run
         os.makedirs(os.path.join(tmp, "reference"))
-        ref_rendering = procs.submit(render_reference_world, args.ref_images, os.path.join(tmp, "reference"))
+        ref_rendering = procs.submit(render_world, args.ref_images, os.path.join(tmp, "reference"), REF_SCALE, 4)
 
         # 5. SIFT on the card
         clock("phase 5")
@@ -2687,27 +2539,39 @@ def main(argv=None) -> int:
         os.makedirs(img_dir)
         for name in sorted(os.listdir(world["paths"]["images"]))[:n]:
             shutil.copy(os.path.join(world["paths"]["images"], name), img_dir)
-        ov = run_overlapped_bench({"gt": world["gt"][:n], "images": img_dir, "map_points": world["map_points"],
-                                   "map_normals": world["map_normals"], "scale": LIGHT_SCALE},
-                                  os.path.join(tmp, "overlap"), pinhole_reader=True)
+        ov = run_bench({"gt": world["gt"][:n], "images": img_dir, "scale": LIGHT_SCALE},
+                       os.path.join(tmp, "overlap"), pinhole_reader=True)
         _log(f"[overlap] {n} images: registered {ov['registered']}, ATE {ov['ate_m'] * 1e3:.3f} mm, scale "
-             f"error {ov['scale_err']:.6f}; wall {ov['wall_seconds']:.3f} s, mapper {ov['seconds']:.3f} s, "
-             f"extraction thread {ov['extract_seconds']:.3f} s, matcher thread "
+             f"error {ov['scale_err']:.6f}; wall {ov['wall_seconds']:.3f} s (the map's build included), mapper "
+             f"{ov['seconds']:.3f} s, extraction thread {ov['extract_seconds']:.3f} s, matcher thread "
              f"{ov['match_seconds']:.3f} s of which busy {ov['match_busy_seconds']:.3f} s, "
              f"{ov['pairs_matched']} pairs matched, {ov['pairs_verified']} verified; launches "
              f"{ov['launches']}")
 
         # 7b. the reference feature scale, overlapped
         ref = ref_rendering.result()
-        _log(f"[reference scale] {args.ref_images} views at {REF_W}x{REF_H}, f = {REF_F:g}, rendered and "
-             f"{ref['map_points'].shape[0]} map points built in {ref['seconds']:.2f} s (host, beside phases 5-7)")
+        _log(f"[reference scale] {args.ref_images} views at {REF_W}x{REF_H}, f = {REF_F:g}, rendered in "
+             f"{ref['seconds']:.2f} s (host, beside phases 5-7)")
         clock("phase 7b")
         os.makedirs(os.path.join(tmp, "reference_run"))
-        rf = run_overlapped_bench(ref, os.path.join(tmp, "reference_run"))
+        rf = run_bench(ref, os.path.join(tmp, "reference_run"))
         _log_reference_scale(rf)
         # K2 at the run's largest query count, the model's points as queries
         # (the largest call is the whole-model association)
-        rf["k2_shape"] = _k2_model_queries(rf["rec"], ref["map_points"], rf["max_queries"])
+        rf["k2_shape"] = _k2_model_queries(rf["rec"], rf["map_points"], rf["max_queries"])
+
+        # 7c. bench.py's sequential branch on the same views, and its line
+        clock("phase 7c")
+        os.makedirs(os.path.join(tmp, "sequential"))
+        sq = run_bench({"gt": world["gt"][:n], "images": img_dir, "scale": LIGHT_SCALE},
+                       os.path.join(tmp, "sequential"), overlapped=False)
+        sq_line = bench_line(sq, LIGHT_SCALE, smi)
+        _log(f"[sequential] {n} images: extractor {sq['extract_seconds']:.3f} s, sequential matcher "
+             f"{sq['match_seconds']:.3f} s ({sq['pairs_matched']} pairs tried, {sq['pairs_verified']} verified), "
+             f"mapper {sq['seconds']:.3f} s, wall {sq['wall_seconds']:.3f} s (the map's build included); "
+             f"registered {sq['registered']}, ATE {sq['ate_m'] * 1e3:.3f} mm, scale error {sq['scale_err']:.6f}; "
+             f"launches {sq['launches']}")
+        _log(f"[sequential] bench line: {json.dumps(sq_line)}")
 
         # 8. the descriptor world
         clock("phase 8")
@@ -2892,11 +2756,13 @@ def main(argv=None) -> int:
     # 14. checks
     u8_launches = {"pixel world": px["matcher_launches"]["match_top2_u8"],
                    "overlapped": ov["launches"]["match_top2_u8"],
+                   "sequential": sq["launches"]["match_top2_u8"],
                    "reference scale": rf["launches"]["match_top2_u8"],
                    "descriptor world": res["matcher_launches"]["match_top2_u8"],
                    "classic world": cl["matcher_launches"]["match_top2_u8"]}
     k2_launches = {"pixel world": px["mapper_launches"]["nn_argmin"],
                    "overlapped": ov["launches"]["nn_argmin"],
+                   "sequential": sq["launches"]["nn_argmin"],
                    "reference scale": rf["launches"]["nn_argmin"],
                    "descriptor world": res["mapper_launches"]["nn_argmin"],
                    "bundle_adjuster": cmds["bundle_adjuster"]["launches"]["nn_argmin"],
@@ -2933,6 +2799,7 @@ def main(argv=None) -> int:
                              f"{resumed['snapshot_registered']}")
     _require_model("overlapped front end", ov, args.overlap_images)
     _require_reference_scale(rf, args.ref_images)
+    _require_bench_line(sq, sq_line, args.overlap_images)
     _require_model("descriptor world", res, args.descriptor_images)
     if not pr["precision"] >= 0.95:
         raise AssertionError(f"match precision {pr['precision']} < 0.95")

@@ -100,12 +100,13 @@ def main(argv=None) -> int:
 
     import torch
 
+    import bench_torch
     import chip_smoke
     from colmap_pcd_tpu_torch.ops import match_kernel
 
     if not torch.cuda.is_available():
         raise SystemExit("torch_k1_numerics: needs an NVIDIA GPU")
-    print(f"[env] nvidia-smi: {chip_smoke._nvidia_smi()}", flush=True)
+    print(f"[env] nvidia-smi: {bench_torch.nvidia_smi()}", flush=True)
     dev = torch.device("cuda")
     rng = np.random.default_rng(args.seed)
     for name, shape in SHAPES:

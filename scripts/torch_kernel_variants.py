@@ -80,13 +80,14 @@ def main(argv=None) -> int:
 
     if not torch.cuda.is_available():
         raise SystemExit("torch_kernel_variants: no CUDA device")
+    import bench_torch
     import chip_smoke
     from colmap_pcd_tpu_torch.models.lidar_map import LidarMap
     from colmap_pcd_tpu_torch.ops import cuda_build, match_kernel, nn_kernel
     from synthetic_torch import build_corridor_map
 
     dev = torch.device("cuda")
-    print(f"[env] nvidia-smi: {chip_smoke._nvidia_smi()}", flush=True)
+    print(f"[env] nvidia-smi: {bench_torch.nvidia_smi()}", flush=True)
     if args.k2_library:
         return k2_library(args.k2_library, args.seed)
     variants = os.path.join(cuda_build.BUILD_DIR, "variants")

@@ -48,9 +48,9 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 sys.path.insert(0, os.path.join(REPO, "tests"))
 
-from chip_smoke import BENCH_MAPPER_OPTIONS as MAPPER_OPTIONS  # noqa: E402
-from chip_smoke import PIXEL_F as F, PIXEL_FEATURES, PIXEL_H as H, PIXEL_OCTAVES  # noqa: E402
-from chip_smoke import PIXEL_STEP as STEP, PIXEL_W as W  # noqa: E402
+from bench_torch import BENCH_MAPPER_OPTIONS as MAPPER_OPTIONS, LIGHT_SCALE, STEP  # noqa: E402
+
+W, H, F, PIXEL_FEATURES, PIXEL_OCTAVES = LIGHT_SCALE
 
 
 def _log(msg: str):

@@ -61,12 +61,13 @@ def main(argv=None) -> int:
 
     if not torch.cuda.is_available():
         raise SystemExit("torch_profile_extractor: no CUDA device")
+    import bench_torch
     import chip_smoke as cs
     from colmap_pcd_tpu_torch.models.feature_pipeline import _EXTRACT_BATCH, ImageReaderConfig, run_feature_extractor
     from colmap_pcd_tpu_torch.ops import sift
     from synthetic_torch import make_trajectory, render_images
 
-    print(f"[env] nvidia-smi: {cs._nvidia_smi()}", flush=True)
+    print(f"[env] nvidia-smi: {bench_torch.nvidia_smi()}", flush=True)
     dev = torch.device("cuda")
     with tempfile.TemporaryDirectory(prefix="profile_extractor_") as tmp:
         gt = make_trajectory(args.n_images, cs.PIXEL_STEP)

@@ -41,12 +41,12 @@ def main(argv=None) -> int:
 
     if not torch.cuda.is_available():
         raise SystemExit("torch_profile_matcher: no CUDA device")
-    import chip_smoke
+    import bench_torch
     from colmap_pcd_tpu_torch import cli
     from colmap_pcd_tpu_torch.utils.logging_utils import PHASES
     from synthetic_torch import make_descriptor_world, write_world
 
-    print(f"[env] nvidia-smi: {chip_smoke._nvidia_smi()}", flush=True)
+    print(f"[env] nvidia-smi: {bench_torch.nvidia_smi()}", flush=True)
     with tempfile.TemporaryDirectory(prefix="profile_matcher_") as tmp:
         rec, graph, lmap, gt, desc, _ = make_descriptor_world(
             np.random.default_rng(args.seed), n_images=args.n_images, n_points=110 * args.n_images,
