@@ -145,8 +145,7 @@ def _sync(device):
 
 
 def reset_phases():
-    PHASES.totals.clear()
-    PHASES.counts.clear()
+    PHASES.reset()
 
 
 def mapper_numbers(seconds: float, registered: int, device="cuda") -> dict:

@@ -44,6 +44,7 @@ from ..ops import sift as sift_ops
 from ..utils import image as image_utils
 from ..utils.camera_database import exif_focal_length
 from ..utils.config import SiftExtractionConfig, SiftMatchingConfig
+from ..utils.logging_utils import PHASES
 from ..utils.threading_utils import pipeline_map
 from . import two_view as two_view_mod
 from .database import Database
@@ -140,13 +141,14 @@ def run_feature_extractor(
     def produce(batch):
         """IO threads: read, EXIF focal prior, resize."""
         out = []
-        for name in batch:
-            path = os.path.join(image_path, name)
-            img = image_utils.imread_gray_u8(path)
-            H0, W0 = img.shape
-            exif_focal = None if reader.camera_params else exif_focal_length(path, W0, H0)
-            img, scale = image_utils.resize_max(img, extraction.max_image_size)
-            out.append((img, scale, (W0, H0), exif_focal))
+        with PHASES.phase("extract.read"):
+            for name in batch:
+                path = os.path.join(image_path, name)
+                img = image_utils.imread_gray_u8(path)
+                H0, W0 = img.shape
+                exif_focal = None if reader.camera_params else exif_focal_length(path, W0, H0)
+                img, scale = image_utils.resize_max(img, extraction.max_image_size)
+                out.append((img, scale, (W0, H0), exif_focal))
         return out
 
     def device_stage(batch, data):
@@ -156,26 +158,28 @@ def run_feature_extractor(
         shapes = {d[0].shape for d in data}
         groups = [list(range(len(data)))] if len(shapes) == 1 else [[i] for i in range(len(data))]
         fetched = [None] * len(data)
-        for group in groups:
-            imgs = torch.as_tensor(np.stack([data[i][0] for i in group]), device=dev)
-            kp, desc, _score, valid = sift_ops.extract_batch(imgs, opts)
-            kp, desc, valid = (
-                t.cpu().numpy() for t in (kp, sift_ops.descriptors_to_uint8(desc), valid)
-            )
-            for row, i in enumerate(group):
-                fetched[i] = (kp[row][valid[row]], desc[row][valid[row]])
+        with PHASES.phase("extract.device"):
+            for group in groups:
+                imgs = torch.as_tensor(np.stack([data[i][0] for i in group]), device=dev)
+                kp, desc, _score, valid = sift_ops.extract_batch(imgs, opts)
+                kp, desc, valid = (
+                    t.cpu().numpy() for t in (kp, sift_ops.descriptors_to_uint8(desc), valid)
+                )
+                for row, i in enumerate(group):
+                    fetched[i] = (kp[row][valid[row]], desc[row][valid[row]])
         return fetched, data
 
     def consume(batch, staged):
         """Writer thread: back to original-image scale, then SQLite."""
         fetched, data = staged
-        for name, (kp, desc), (_img, scale, (W0, H0), exif_focal) in zip(batch, fetched, data):
-            if scale != 1.0:
-                kp[:, :3] /= scale
-            iid = db.add_image(name, cameras.camera_id(name, W0, H0, exif_focal))
-            db.write_keypoints(iid, kp[:, :4])
-            db.write_descriptors(iid, desc)
-            db.commit()
+        with PHASES.phase("extract.write"):
+            for name, (kp, desc), (_img, scale, (W0, H0), exif_focal) in zip(batch, fetched, data):
+                if scale != 1.0:
+                    kp[:, :3] /= scale
+                iid = db.add_image(name, cameras.camera_id(name, W0, H0, exif_focal))
+                db.write_keypoints(iid, kp[:, :4])
+                db.write_descriptors(iid, desc)
+                db.commit()
 
     batches = [names[i : i + _EXTRACT_BATCH] for i in range(0, len(names), _EXTRACT_BATCH)]
     try:
@@ -325,7 +329,8 @@ class _MatchWorker:
     # ------------------------------------------------------- pipeline stages
     def _prep(self, pairs):
         """Host (caller thread): pull host features, decide the chunk cap."""
-        hfeats = [(self._feats_host(i), self._feats_host(j)) for i, j in pairs]
+        with PHASES.phase("match.prep"):
+            hfeats = [(self._feats_host(i), self._feats_host(j)) for i, j in pairs]
         cap = max(max(f1[1].shape[0], f2[1].shape[0]) for f1, f2 in hfeats)
         degenerate = all(f1[3] == 0 or f2[3] == 0 for f1, f2 in hfeats)
         return dict(pairs=list(pairs), hfeats=hfeats, cap=cap, degenerate=degenerate)
@@ -335,75 +340,79 @@ class _MatchWorker:
         [B, cap, 128] uint8 bank, fetch (idx, ok, sim) once."""
         cap = prep["cap"]
         sides = ([], [], []), ([], [], [])  # descriptors, inverse norms, valid
-        for (i, j), (f1, f2) in zip(prep["pairs"], prep["hfeats"]):
-            for iid, f, (ds, ns, vs) in ((i, f1, sides[0]), (j, f2, sides[1])):
-                d, inv = self._feats_dev(iid, f[1])
-                ds.append(torch.nn.functional.pad(d, (0, 0, 0, cap - d.shape[0])))
-                ns.append(torch.nn.functional.pad(inv, (0, cap - inv.shape[0])))
-                vs.append(np.pad(f[2], (0, cap - f[2].shape[0])))
-        dev = self.device
-        (d1s, n1s, v1s), (d2s, n2s, v2s) = sides
-        idx, ok, sim = matching_ops.match_descriptors_u8(
-            torch.stack(d1s), torch.stack(d2s), torch.stack(n1s), torch.stack(n2s),
-            torch.as_tensor(np.stack(v1s), device=dev), torch.as_tensor(np.stack(v2s), device=dev),
-            self._mopts(),
-        )
-        return idx.cpu().numpy(), ok.cpu().numpy(), sim.cpu().numpy()
+        with PHASES.phase("match.k1"):
+            for (i, j), (f1, f2) in zip(prep["pairs"], prep["hfeats"]):
+                for iid, f, (ds, ns, vs) in ((i, f1, sides[0]), (j, f2, sides[1])):
+                    d, inv = self._feats_dev(iid, f[1])
+                    ds.append(torch.nn.functional.pad(d, (0, 0, 0, cap - d.shape[0])))
+                    ns.append(torch.nn.functional.pad(inv, (0, cap - inv.shape[0])))
+                    vs.append(np.pad(f[2], (0, cap - f[2].shape[0])))
+            dev = self.device
+            (d1s, n1s, v1s), (d2s, n2s, v2s) = sides
+            idx, ok, sim = matching_ops.match_descriptors_u8(
+                torch.stack(d1s), torch.stack(d2s), torch.stack(n1s), torch.stack(n2s),
+                torch.as_tensor(np.stack(v1s), device=dev), torch.as_tensor(np.stack(v2s), device=dev),
+                self._mopts(),
+            )
+            return idx.cpu().numpy(), ok.cpu().numpy(), sim.cpu().numpy()
 
     def _assemble_pure(self, prep, fetched):
         """Host: extract per-pair matches, build the E/F/H items. Returns
         (asm | None, match_writes)."""
-        idx_b, ok_b, sim_b = fetched
-        items, meta, match_writes = [], [], []
-        for b, (id1, id2) in enumerate(prep["pairs"]):
-            rows = np.nonzero(ok_b[b])[0]
-            mpairs = np.stack([rows, idx_b[b][rows]], axis=-1).astype(np.int32)
-            if len(mpairs) < self.cfg.min_num_inliers:
-                match_writes.append((id1, id2, np.zeros((0, 2), np.uint32)))
-                continue
-            match_writes.append((id1, id2, mpairs))
-            kp1 = prep["hfeats"][b][0][0]
-            kp2 = prep["hfeats"][b][1][0]
-            cam1 = self.cameras[self.images[id1]["camera_id"]]
-            cam2 = self.cameras[self.images[id2]["camera_id"]]
-            items.append(dict(
-                uv1=kp1[mpairs[:, 0], :2],
-                uv2=kp2[mpairs[:, 1], :2],
-                params1=np_geom.pad_params(
-                    cam1["params"][: cm.NUM_PARAMS[cam1["model_id"]]], cam1["model_id"]
-                ),
-                params2=np_geom.pad_params(
-                    cam2["params"][: cm.NUM_PARAMS[cam2["model_id"]]], cam2["model_id"]
-                ),
-                model_id1=cam1["model_id"],
-                model_id2=cam2["model_id"],
-                size1=(cam1["width"], cam1["height"]),
-                size2=(cam2["width"], cam2["height"]),
-                quality=sim_b[b][mpairs[:, 0]],
-            ))
-            meta.append((id1, id2, mpairs))
-        if not items:
-            return None, match_writes
-        return dict(items=items, meta=meta), match_writes
+        with PHASES.phase("match.assemble"):
+            idx_b, ok_b, sim_b = fetched
+            items, meta, match_writes = [], [], []
+            for b, (id1, id2) in enumerate(prep["pairs"]):
+                rows = np.nonzero(ok_b[b])[0]
+                mpairs = np.stack([rows, idx_b[b][rows]], axis=-1).astype(np.int32)
+                if len(mpairs) < self.cfg.min_num_inliers:
+                    match_writes.append((id1, id2, np.zeros((0, 2), np.uint32)))
+                    continue
+                match_writes.append((id1, id2, mpairs))
+                kp1 = prep["hfeats"][b][0][0]
+                kp2 = prep["hfeats"][b][1][0]
+                cam1 = self.cameras[self.images[id1]["camera_id"]]
+                cam2 = self.cameras[self.images[id2]["camera_id"]]
+                items.append(dict(
+                    uv1=kp1[mpairs[:, 0], :2],
+                    uv2=kp2[mpairs[:, 1], :2],
+                    params1=np_geom.pad_params(
+                        cam1["params"][: cm.NUM_PARAMS[cam1["model_id"]]], cam1["model_id"]
+                    ),
+                    params2=np_geom.pad_params(
+                        cam2["params"][: cm.NUM_PARAMS[cam2["model_id"]]], cam2["model_id"]
+                    ),
+                    model_id1=cam1["model_id"],
+                    model_id2=cam2["model_id"],
+                    size1=(cam1["width"], cam1["height"]),
+                    size2=(cam2["width"], cam2["height"]),
+                    quality=sim_b[b][mpairs[:, 0]],
+                ))
+                meta.append((id1, id2, mpairs))
+            if not items:
+                return None, match_writes
+            return dict(items=items, meta=meta), match_writes
 
     def _dev_verify(self, asm):
         """Device: the fused E/F/H + pose bank over the chunk, fetched once."""
-        outputs, ctx = two_view_mod.two_view_verify_dispatch(asm["items"], self._tv_opts(), self.device)
-        return two_view_mod.fetch(outputs), ctx
+        with PHASES.phase("two_view.verify"):
+            outputs, ctx = two_view_mod.two_view_verify_dispatch(asm["items"], self._tv_opts(), self.device)
+            return two_view_mod.fetch(outputs), ctx
 
     def _classify_pure(self, asm, vctx, vfetched):
         """Host: configuration classification. Returns (geom_writes, n_ok)
         with geom_writes rows (id1, id2, inliers, geom)."""
-        geoms = two_view_mod.two_view_verify_classify(vfetched, vctx, asm["items"], self._tv_opts())
-        n_ok = 0
-        geom_writes = []
-        for (id1, id2, mpairs), g in zip(asm["meta"], geoms):
-            rows = g.inlier_matches[:, 0] if len(g.inlier_matches) else np.zeros(0, np.int64)
-            inliers = mpairs[rows] if len(rows) else np.zeros((0, 2), np.uint32)
-            geom_writes.append((id1, id2, inliers, g))
-            if len(inliers) >= self.cfg.min_num_inliers:
-                n_ok += 1
-        return geom_writes, n_ok
+        with PHASES.phase("two_view.classify"):
+            geoms = two_view_mod.two_view_verify_classify(vfetched, vctx, asm["items"], self._tv_opts())
+            n_ok = 0
+            geom_writes = []
+            for (id1, id2, mpairs), g in zip(asm["meta"], geoms):
+                rows = g.inlier_matches[:, 0] if len(g.inlier_matches) else np.zeros(0, np.int64)
+                inliers = mpairs[rows] if len(rows) else np.zeros((0, 2), np.uint32)
+                geom_writes.append((id1, id2, inliers, g))
+                if len(inliers) >= self.cfg.min_num_inliers:
+                    n_ok += 1
+            return geom_writes, n_ok
 
     def _process_chunk(self, prep):
         """One chunk through match -> assemble -> verify -> classify; touches
@@ -428,13 +437,14 @@ class _MatchWorker:
         def flush(fut):
             nonlocal n_ok
             match_writes, geom_writes, ok = fut.result()
-            for id1, id2, mpairs in match_writes:
-                self.db.write_matches(id1, id2, mpairs)
-            for id1, id2, inliers, g in geom_writes:
-                self.db.write_two_view_geometry(
-                    id1, id2, inliers, g.config, F=g.F, E=g.E, H=g.H, qvec=g.qvec, tvec=g.tvec,
-                )
-            self.db.commit()
+            with PHASES.phase("match.write"):
+                for id1, id2, mpairs in match_writes:
+                    self.db.write_matches(id1, id2, mpairs)
+                for id1, id2, inliers, g in geom_writes:
+                    self.db.write_two_view_geometry(
+                        id1, id2, inliers, g.config, F=g.F, E=g.E, H=g.H, qvec=g.qvec, tvec=g.tvec,
+                    )
+                self.db.commit()
             n_ok += ok
 
         window: deque = deque()

@@ -454,12 +454,6 @@ def _side(lay: _Layout, Jcam, rc, Jpc, Hpp_inv, b_p) -> _Side:
     return _Side(Jcam, rc, W, Wslots, Hpp_inv, b_p, Hinv_c, bp_c)
 
 
-def _count(name: str, n: int):
-    """Work-size accounting in the phase report (shows as xN)."""
-    PHASES.totals.setdefault(name, 0.0)
-    PHASES.counts[name] = PHASES.counts.get(name, 0) + n
-
-
 def _reduce(mesh, parts: list) -> tuple:
     """The shards' parts (one tuple of tensors each) summed on the root
     device. One shard: its part as it is. A mesh: one reduction of the parts
@@ -469,8 +463,8 @@ def _reduce(mesh, parts: list) -> tuple:
         (part,) = parts
         return part
     flat = mesh.reduce_sum([torch.cat([x.reshape(-1) for x in p]) for p in parts])
-    _count("ba_reductions", 1)
-    _count("ba_reduced_bytes", flat.numel() * flat.element_size())
+    PHASES.count("ba_reductions", 1)
+    PHASES.count("ba_reduced_bytes", flat.numel() * flat.element_size())
     out, o = [], 0
     for x in parts[0]:
         out.append(flat[o : o + x.numel()].view(x.shape))

@@ -36,6 +36,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..utils.logging_utils import PHASES
 from .solvers import solve3
 
 Tensor = torch.Tensor
@@ -599,8 +600,10 @@ def extract_batch(images: Tensor, opts: SiftOptions = SiftOptions()):
     descriptors [B,K,128], scores [B,K], valid [B,K] bool), K =
     opts.max_num_features, on the device of `images`. Every image of the
     batch is computed for itself: the result equals B calls of `extract`."""
-    Gs, kx, ky, sigma_rel, lev, wh, mul, top, sel_valid = _detect(images, opts)
-    ori, desc = _orientation_and_descriptor(Gs, kx, ky, sigma_rel, opts, lidx=lev, wh=wh)
+    with PHASES.phase("sift.detect"):
+        Gs, kx, ky, sigma_rel, lev, wh, mul, top, sel_valid = _detect(images, opts)
+    with PHASES.phase("sift.describe"):
+        ori, desc = _orientation_and_descriptor(Gs, kx, ky, sigma_rel, opts, lidx=lev, wh=wh)
     sel_kp = torch.stack([kx * mul, ky * mul, sigma_rel * mul, ori], -1)
 
     K = opts.max_num_features

@@ -29,12 +29,6 @@ from . import se3
 Tensor = torch.Tensor
 
 
-def _count_sync(x: Tensor):
-    if x.is_cuda:
-        PHASES.totals.setdefault("linalg_syncs", 0.0)
-        PHASES.counts["linalg_syncs"] = PHASES.counts.get("linalg_syncs", 0) + 1
-
-
 # cuSOLVER's batched eigh (the path torch takes for small matrices on CUDA)
 # refuses 32768 or more matrices in one call; measured on an H100 with
 # torch 2.11 / CUDA 12.8
@@ -45,7 +39,8 @@ def _eigh(M: Tensor) -> tuple[Tensor, Tensor]:
     flat = M.reshape(-1, M.shape[-2], M.shape[-1])
     parts = []
     for start in range(0, max(flat.shape[0], 1), _EIGH_BATCH):
-        _count_sync(M)
+        if M.is_cuda:
+            PHASES.count("linalg_syncs")
         parts.append(torch.linalg.eigh(flat[start : start + _EIGH_BATCH]))
     w = torch.cat([p[0] for p in parts]).reshape(M.shape[:-1])
     V = torch.cat([p[1] for p in parts]).reshape(M.shape)
@@ -53,7 +48,8 @@ def _eigh(M: Tensor) -> tuple[Tensor, Tensor]:
 
 
 def _svd(M: Tensor) -> tuple[Tensor, Tensor, Tensor]:
-    _count_sync(M)
+    if M.is_cuda:
+        PHASES.count("linalg_syncs")
     return torch.linalg.svd(M)
 
 
