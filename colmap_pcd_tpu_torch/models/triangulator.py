@@ -11,6 +11,14 @@ under-reconstructed image pairs.
 
 Triangulation and the graph walking are host-side numpy bookkeeping
 (ops/np_geom); reconstruction state is only mutated from the mapper thread.
+
+CompleteTracks, CompleteImage and MergeTracks walk the graph point by point
+(or feature by feature), and almost everything they visit finds nothing to
+do. Each walk therefore starts with an exact array screen: one batched pass
+over the correspondences of its whole set, on the state as the walk starts,
+flags the ids the walk can change, and the walk runs, in its own order and
+with its own gates, over those alone (the argument for each screen is at
+its `_screen_*` method).
 """
 
 from __future__ import annotations
@@ -20,7 +28,16 @@ from dataclasses import dataclass
 import numpy as np
 
 from ..ops import np_geom
+from ..utils.logging_utils import PHASES
+from .correspondence_graph import FEAT_BITS
 from .reconstruction import INVALID_POINT3D, Reconstruction
+
+# Relative room on a reprojection gate in the screens, and depth room (in
+# the model's units) on its cheirality test: the screens batch their
+# projections otherwise than the walks do, so a last-bit difference can only
+# add an id to a flagged set, never drop one.
+SCREEN_GATE_SLACK = 1e-9
+SCREEN_DEPTH_SLACK = 1e-6
 
 
 @dataclass
@@ -91,16 +108,7 @@ class IncrementalTriangulator:
             return 0
         q_feat = free[qid]
 
-        # registered/pid status per correspondence row, one gather per image
-        reg = np.zeros(qid.size, bool)
-        pid_row = np.full(qid.size, INVALID_POINT3D, np.int64)
-        for cid in np.unique(nbr_img):
-            cimg = self.rec.images.get(int(cid))
-            if cimg is None or not cimg.registered:
-                continue
-            sel = nbr_img == cid
-            reg[sel] = True
-            pid_row[sel] = cimg.point3D_ids[nbr_feat[sel]]
+        reg, pid_row = self._neighbour_pids(nbr_img, nbr_feat)
 
         num_tris = 0
         order = np.argsort(q_feat, kind="stable")
@@ -317,7 +325,11 @@ class IncrementalTriangulator:
         """Extend tracks with correspondences that now reproject well
         (CompleteTracks, incremental_triangulator.h:114)."""
         n = 0
-        for pid in list(point3D_ids):
+        point3D_ids = list(point3D_ids)
+        flagged = self._screen_complete_tracks(options, point3D_ids)
+        for pid in point3D_ids:
+            if pid not in flagged:
+                continue
             p = self.rec.points3D.get(pid)
             if p is None:
                 continue
@@ -376,7 +388,7 @@ class IncrementalTriangulator:
         if not img.registered:
             return 0
         n = 0
-        for feat_idx in range(img.xys.shape[0]):
+        for feat_idx in self._screen_complete_image(options, image_id):
             if img.point3D_ids[feat_idx] != INVALID_POINT3D:
                 continue
             for cid, cfeat in self.graph.find_correspondences(image_id, feat_idx):
@@ -396,7 +408,11 @@ class IncrementalTriangulator:
         """Merge connected tracks when the merged point explains both
         (MergeTracks, incremental_triangulator.h:123)."""
         n = 0
-        for pid in list(point3D_ids):
+        point3D_ids = list(point3D_ids)
+        flagged = self._screen_merge_tracks(point3D_ids)
+        for pid in point3D_ids:
+            if pid not in flagged:
+                continue
             p = self.rec.points3D.get(pid)
             if p is None:
                 continue
@@ -443,6 +459,140 @@ class IncrementalTriangulator:
             if np.any(np.linalg.norm(xy - uv, axis=-1) >= max_err):
                 return False
         return True
+
+    # ------------------------------------------------------------------
+    # Screens: one array pass each, on the state as its walk starts.
+
+    def _live_table(self) -> np.ndarray:
+        """Bool table over point ids, True for those in points3D; it spans
+        every id an image carries."""
+        rec = self.rec
+        keys = np.fromiter(rec.points3D.keys(), np.int64, len(rec.points3D))
+        top = max(
+            [int(keys.max(initial=0))]
+            + [int(im.point3D_ids.max(initial=0)) for im in rec.images.values()]
+        )
+        live = np.zeros(top + 1, bool)
+        live[keys] = True
+        return live
+
+    def _neighbour_pids(self, nbr_img, nbr_feat):
+        """(registered, point id) of each neighbour feature, one gather a
+        neighbour image; the id is INVALID_POINT3D where the image is not
+        registered."""
+        nbr_reg = np.zeros(nbr_img.size, bool)
+        nbr_pid = np.full(nbr_img.size, INVALID_POINT3D, np.int64)
+        for cid, rows in _groups(nbr_img):
+            cimg = self.rec.images.get(cid)
+            if cimg is None or not cimg.registered:
+                continue
+            nbr_reg[rows] = True
+            nbr_pid[rows] = cimg.point3D_ids[nbr_feat[rows]]
+        return nbr_reg, nbr_pid
+
+    def _track_correspondences(self, point3D_ids, live: np.ndarray):
+        """Every correspondence of every observation of the points of
+        `point3D_ids` in the model, from one batched graph lookup. The
+        observations come from the images' point3D_ids, one mask an image.
+
+        Returns (n_points, pid, nbr_img, nbr_feat, nbr_reg, nbr_pid): the
+        number of distinct points screened, then per correspondence the
+        observing point, the neighbour feature, and its state as
+        `_neighbour_pids` gives it."""
+        ids = np.asarray(point3D_ids, np.int64).reshape(-1)
+        ids = ids[(ids >= 0) & (ids < live.size)]
+        wanted = np.zeros(live.size, bool)
+        wanted[ids] = live[ids]
+        obs_pid, obs_key = [], []
+        for iid, im in self.rec.images.items():
+            p = im.point3D_ids
+            feats = np.nonzero(wanted[p] & (p != INVALID_POINT3D))[0]
+            if feats.size:
+                obs_pid.append(p[feats])
+                obs_key.append((np.int64(iid) << FEAT_BITS) | feats.astype(np.int64))
+        n_points = int(wanted.sum())
+        if not obs_pid:
+            z = np.zeros(0, np.int64)
+            return n_points, z, z, z, np.zeros(0, bool), z
+        qid, nbr_img, nbr_feat = self.graph.find_batch_keys(np.concatenate(obs_key))
+        nbr_reg, nbr_pid = self._neighbour_pids(nbr_img, nbr_feat)
+        return n_points, np.concatenate(obs_pid)[qid], nbr_img, nbr_feat, nbr_reg, nbr_pid
+
+    def _passes_gate(self, image_ids, feats, pids, max_err: float) -> np.ndarray:
+        """Rows whose point reprojects into feature `feats` of `image_ids`
+        in front of the camera and within max_err, with the screens'
+        slack: one projection an image."""
+        ok = np.zeros(image_ids.size, bool)
+        if not ok.size:
+            return ok
+        uniq, inv = np.unique(pids, return_inverse=True)
+        xyz = np.stack([self.rec.points3D[p].xyz for p in uniq.tolist()])[inv.reshape(-1)]
+        for iid, rows in _groups(image_ids):
+            img = self.rec.images[iid]
+            cam = self.rec.cameras[img.camera_id]
+            xy, z = np_geom.project(cam.model_id, cam.padded_params(), img.qvec, img.tvec, xyz[rows])
+            err = np.linalg.norm(xy - img.xys[feats[rows]], axis=-1)
+            ok[rows] = (z > -SCREEN_DEPTH_SLACK) & (err < max_err * (1 + SCREEN_GATE_SLACK))
+        return ok
+
+    @staticmethod
+    def _count_screen(n_screened: int, n_flagged: int):
+        PHASES.count("track_screen_pts", n_screened)
+        PHASES.count("track_screen_flagged", n_flagged)
+
+    def _screen_merge_tracks(self, point3D_ids) -> set:
+        """The points of `point3D_ids` that merge_tracks can merge: those
+        with a correspondence in a registered image that carries another
+        point of the model. Exact: a merge relabels only features that
+        already carry a point, so no free feature and no feature of an
+        unregistered image becomes a candidate while the walk runs; a point
+        that had none as the walk began has none when it is reached, or is
+        gone, merged into a flagged one."""
+        live = self._live_table()
+        n_points, pid, _, _, _, nbr_pid = self._track_correspondences(point3D_ids, live)
+        cand = live[nbr_pid] & (nbr_pid != INVALID_POINT3D) & (nbr_pid != pid)
+        flagged = set(np.unique(pid[cand]).tolist())
+        self._count_screen(n_points, len(flagged))
+        return flagged
+
+    def _screen_complete_tracks(self, options: TriangulatorOptions, point3D_ids) -> set:
+        """The points of `point3D_ids` that complete_tracks can extend:
+        those with a free correspondence in a registered image that they
+        reproject into within the gate. Exact: the walk only claims free
+        features and moves no point and no pose, so a point with no such
+        first hop as the walk began finds none when it is reached, and
+        without a first hop there is no second."""
+        n_points, pid, nbr_img, nbr_feat, nbr_reg, nbr_pid = self._track_correspondences(
+            point3D_ids, self._live_table()
+        )
+        cand = np.nonzero(nbr_reg & (nbr_pid == INVALID_POINT3D))[0]
+        ok = self._passes_gate(
+            nbr_img[cand], nbr_feat[cand], pid[cand], options.complete_max_reproj_error
+        )
+        flagged = set(np.unique(pid[cand[ok]]).tolist())
+        self._count_screen(n_points, len(flagged))
+        return flagged
+
+    def _screen_complete_image(self, options: TriangulatorOptions, image_id: int) -> list:
+        """The free features of `image_id` that complete_image can give a
+        point, ascending: those with a correspondence in a registered image
+        that carries a point of the model reprojecting into the feature
+        within the gate. Exact: an observation added to `image_id` changes
+        neither another feature's correspondences nor their points."""
+        img = self.rec.images[image_id]
+        free = np.nonzero(img.point3D_ids == INVALID_POINT3D)[0]
+        qid, nbr_img, nbr_feat = self.graph.find_batch(image_id, free)
+        _, nbr_pid = self._neighbour_pids(nbr_img, nbr_feat)
+        live = self._live_table()
+        cand = np.nonzero(live[nbr_pid] & (nbr_pid != INVALID_POINT3D))[0]
+        cand_feat = free[qid[cand]]
+        ok = self._passes_gate(
+            np.full(cand.size, image_id, np.int64), cand_feat, nbr_pid[cand],
+            options.complete_max_reproj_error,
+        )
+        feats = np.unique(cand_feat[ok]).tolist()
+        self._count_screen(int(free.size), len(feats))
+        return feats
 
     def retriangulate(self, options: TriangulatorOptions) -> int:
         """Retriangulate under-reconstructed image pairs (Retriangulate,
@@ -531,3 +681,10 @@ class IncrementalTriangulator:
                 self.rec.add_observation(int(pids[k]), image_id, f)
                 n += 1
         return n
+
+
+def _groups(ids: np.ndarray):
+    """(id, rows) for each distinct value of `ids`, ascending."""
+    order = np.argsort(ids, kind="stable")
+    uniq, starts = np.unique(ids[order], return_index=True)
+    return zip(uniq.tolist(), np.split(order, starts[1:]))

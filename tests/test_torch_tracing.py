@@ -1,7 +1,8 @@
 """PHASES, the port's one trace (CPU): spans nest per thread and are kept
 as intervals only while recording; counters are exact under threads; a
-span closes however its block is left; and the front end's layers open
-their spans where their work happens."""
+span closes however its block is left; the front end's layers open
+their spans where their work happens; and the triangulator's screens count
+what they scan and flag."""
 
 import threading
 import time
@@ -10,12 +11,15 @@ import numpy as np
 import pytest
 import torch
 
+import synthetic_torch
 from benchmarks import spans as span_mod
+from colmap_pcd_tpu_torch.models import controllers, incremental_mapper, triangulator
 from colmap_pcd_tpu_torch.models import feature_pipeline as fp_t
 from colmap_pcd_tpu_torch.utils.config import SiftExtractionConfig, SiftMatchingConfig
 from colmap_pcd_tpu_torch.utils.logging_utils import PHASES, PhaseTimer
 
 from test_sift import make_texture
+from test_torch_track_screen import NEW_IMAGE, whole_tracks_world
 
 torch.set_num_threads(1)  # the suite runs several workers on few cores
 
@@ -207,3 +211,45 @@ def test_front_end_spans_where_the_work_happens(image_dir, tmp_path):
             assert thread == caller, name
         if name in ("extract.read", "extract.write", "match.k1", "two_view.verify"):
             assert thread != caller, name
+
+
+def _screen_counts():
+    return PHASES.counts.get("track_screen_pts", 0), PHASES.counts.get("track_screen_flagged", 0)
+
+
+def test_track_screen_counters():
+    """The triangulator's screens count the points (or features) they scan
+    and those they flag for the walks: after the local refinements of a
+    mapping on the synthetic world both counters are in the report, with
+    flagged <= scanned; on whole tracks (each feature in its world point's
+    track) nothing can be merged or completed and nothing is flagged."""
+    rec, graph, lmap, gt = synthetic_torch.make_world(
+        np.random.default_rng(7), n_images=5, n_points=300, noise_px=0.5
+    )
+    ctl = controllers.IncrementalMapperController(
+        rec, graph,
+        incremental_mapper.MapperOptions(
+            if_add_lidar_constraint=True, init_image_id1=1, init_image_id2=2,
+            abs_pose_min_num_inliers=15, init_min_num_inliers=50, num_ransac_hypotheses=1024,
+        ),
+        controllers.ControllerOptions(verbose=False), lidar_map=lmap, pose_priors={1: gt[0]},
+    )
+    pts0, flagged0 = _screen_counts()
+    refinements0 = PHASES.counts.get("track_merge_complete", 0)
+    assert ctl.reconstruct()
+    pts, flagged = _screen_counts()
+    assert PHASES.counts["track_merge_complete"] > refinements0
+    assert 0 <= flagged - flagged0 <= pts - pts0 and pts > pts0
+    report = PHASES.report()
+    assert "track_screen_pts" in report and "track_screen_flagged" in report
+
+    rec, graph = whole_tracks_world(5)
+    tri = triangulator.IncrementalTriangulator(rec, graph)
+    opts = triangulator.TriangulatorOptions()
+    ids = list(rec.points3D)
+    free = int(np.sum(rec.images[NEW_IMAGE].point3D_ids == triangulator.INVALID_POINT3D))
+    pts0, flagged0 = _screen_counts()
+    assert tri.merge_tracks(opts, ids) == tri.complete_tracks(opts, ids) == 0
+    assert tri.complete_image(opts, NEW_IMAGE) == 0
+    pts, flagged = _screen_counts()
+    assert pts - pts0 == 2 * len(ids) + free and flagged == flagged0
