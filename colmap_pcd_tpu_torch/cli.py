@@ -1014,22 +1014,74 @@ def cmd_image_rectifier(argv, device):
 # database and project
 
 
+# COLMAP's patch_match_stereo / stereo_fusion flags by the DenseOptions
+# field each sets (num_depths and num_src_images are the plane sweep's own)
+_DENSE_FLAGS = {
+    "PatchMatchStereo.max_image_size": "max_image_size",
+    "PatchMatchStereo.depth_min": "depth_min",
+    "PatchMatchStereo.depth_max": "depth_max",
+    "PatchMatchStereo.window_radius": "window_radius",
+    "PatchMatchStereo.sigma_spatial": "sigma_spatial",
+    "PatchMatchStereo.sigma_color": "sigma_color",
+    "PatchMatchStereo.geom_consistency": "geom_consistency",
+    "PatchMatchStereo.filter_min_num_consistent": "min_consistent",
+    "PatchMatchStereo.num_depths": "num_depths",
+    "PatchMatchStereo.num_src_images": "num_src_images",
+}
+# COLMAP's flags whose values the plane sweep holds fixed (StereoOptions'
+# field of each): taken at that value, refused at any other
+_FIXED_DENSE_FLAGS = {
+    "PatchMatchStereo.geom_consistency_regularizer": "geom_regularizer",
+    "PatchMatchStereo.geom_consistency_max_cost": "geom_max_cost",
+    "PatchMatchStereo.filter_min_ncc": "min_ncc",
+    "StereoFusion.max_depth_error": "max_depth_error",
+}
+
+
+def _dense_options(argv):
+    """(DenseOptions from COLMAP's --PatchMatchStereo.* and --StereoFusion.*
+    flags, the other arguments). Other flags of the two namespaces raise;
+    fields without a flag keep their defaults."""
+    from .models.mvs import DenseOptions
+    from .ops.stereo import StereoOptions
+    from .utils.config import _coerce
+
+    options, fixed, rest = DenseOptions(), StereoOptions(), []
+    it = iter(argv)
+    for a in it:
+        key = a[2:] if a.startswith("--") else ""
+        if key.partition(".")[0] not in ("PatchMatchStereo", "StereoFusion"):
+            rest.append(a)
+        elif key in _DENSE_FLAGS:
+            name = _DENSE_FLAGS[key]
+            setattr(options, name, _coerce(next(it), type(getattr(options, name))))
+        elif key in _FIXED_DENSE_FLAGS:
+            held = getattr(fixed, _FIXED_DENSE_FLAGS[key])
+            if _coerce(next(it), type(held)) != held:
+                raise ValueError(f"{a} is fixed at {held} in the plane sweep")
+        else:
+            raise ValueError(f"unknown option {a}")
+    return options, rest
+
+
 def cmd_patch_match_stereo(argv, device):
     """Dense stereo over an undistorted workspace (RunPatchMatchStereo,
     plane-sweep formulation: ops/stereo.py)."""
+    options, argv = _dense_options(argv)
     p, _ = _split(argv, "workspace_path")
-    from .models.mvs import DenseOptions, run_patch_match_stereo
+    from .models.mvs import run_patch_match_stereo
 
-    n = run_patch_match_stereo(p["workspace_path"], DenseOptions(), device=device)
+    n = run_patch_match_stereo(p["workspace_path"], options, device=device)
     print(f"Computed depth/normal maps for {n} views")
     return 0
 
 
 def cmd_stereo_fusion(argv, device):
+    options, argv = _dense_options(argv)
     p, _ = _split(argv, "workspace_path", "output_path")
-    from .models.mvs import DenseOptions, run_stereo_fusion
+    from .models.mvs import run_stereo_fusion
 
-    pts, _, _ = run_stereo_fusion(p["workspace_path"], p["output_path"], DenseOptions(), device=device)
+    pts, _, _ = run_stereo_fusion(p["workspace_path"], p["output_path"], options, device=device)
     print(f"Fused {len(pts)} points")
     return 0
 

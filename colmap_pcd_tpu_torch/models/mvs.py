@@ -9,13 +9,23 @@ the consistency mask of every view and the fused, coloured cloud with
 normals (fused.ply).
 
 Each image is read and uploaded once; a view's maps come back to the host
-in one fetch per pass (the PHASES counter `stereo_fetch` counts them, and
-`fusion_fetch` the masks of fusion). Both passes sweep the views through
-parallel/dist_mvs.py, in groups of one view per device of `mesh=`
-(parallel/mesh.py; without a mesh one view at a time), as the JAX
-package's `_run_patch_match_sharded` fans them out, but without its
-padding of sources and views, so every view's maps equal the one-device
-run's.
+in one fetch per pass. The first pass's maps are kept as
+`<name>.photometric.npy` beside the last pass's `<name>.npy` (COLMAP's
+`.photometric` and `.geometric` maps), which fusion reads. PHASES spans:
+`stereo.problem` (a view's sources, depth range and uploads),
+`stereo.sweep` (one view-pass, or a mesh group's, through the fetch of its
+maps, `stereo_fetch`), `stereo.write`, and in fusion `fusion.mask` (the
+consistency mask through its fetch, `fusion_fetch`) and `fusion.points`
+(back-projection and the PLY). Counters of the sweeps' work:
+`stereo_view_passes`; `stereo_hyp`, the (pixel, source, depth) hypotheses
+H*W*S*D; `stereo_tap_hyp`, those times the (2r+1)^2 window taps;
+`stereo_hyp_geom`, the hypotheses of the geometric pass; `stereo_bytes`,
+the images (and source depth maps) read once and the maps written once.
+Both passes sweep the views through parallel/dist_mvs.py, in groups of
+one view per device of `mesh=` (parallel/mesh.py; without a mesh one view
+at a time), as the JAX package's `_run_patch_match_sharded` fans them
+out, but without its padding of sources and views, so every view's maps
+equal the one-device run's.
 """
 
 from __future__ import annotations
@@ -38,7 +48,7 @@ from .reconstruction import Reconstruction
 
 @dataclass
 class DenseOptions:
-    max_image_size: int = 640
+    max_image_size: int = 640  # <= 0 keeps the views whole (COLMAP's -1)
     num_depths: int = 64
     num_src_images: int = 4
     window_radius: int = 3
@@ -136,7 +146,8 @@ def run_patch_match_stereo(
 
     workspace/sparse = undistorted model; workspace/images = undistorted
     images (run_image_undistorter layout). Writes workspace/stereo/
-    {depth_maps,normal_maps,cost_maps}/<name>.npy. Returns the view count.
+    {depth_maps,normal_maps,cost_maps}/<name>.npy (the last pass) and
+    <name>.photometric.npy (the first). Returns the view count.
     """
     dev = mesh.root if mesh is not None and device is None else device_mod.resolve(device)
     if rec is None:
@@ -164,6 +175,7 @@ def run_patch_match_stereo(
         sigma_color=options.sigma_color,
         sigma_spatial=options.sigma_spatial,
     )
+    taps = (2 * options.window_radius + 1) ** 2
 
     def view_problem(ref_id):
         """The per-reference problem: (sources, then plane_sweep's inputs)."""
@@ -194,17 +206,32 @@ def run_patch_match_stereo(
             put(np.stack(R_rels)), put(np.stack(t_rels)), put(depths),
         )
 
-    def save_maps(ref_id, depth, cost, normal):
+    def fetch(depth, cost, normal) -> np.ndarray:
         with PHASES.phase("stereo_fetch"):
-            maps = torch.cat([depth[..., None], cost[..., None], normal], -1).cpu().numpy()
+            return torch.cat([depth[..., None], cost[..., None], normal], -1).cpu().numpy()
+
+    def write_maps(ref_id, maps, suffixes):
         name = rec.images[ref_id].name.replace("/", "_")
-        np.save(os.path.join(sdir, "depth_maps", name + ".npy"), np.ascontiguousarray(maps[..., 0]))
-        np.save(os.path.join(sdir, "normal_maps", name + ".npy"), np.ascontiguousarray(maps[..., 2:]))
-        np.save(os.path.join(sdir, "cost_maps", name + ".npy"), np.ascontiguousarray(maps[..., 1]))
+        for suffix in suffixes:
+            np.save(os.path.join(sdir, "depth_maps", name + suffix), np.ascontiguousarray(maps[..., 0]))
+            np.save(os.path.join(sdir, "normal_maps", name + suffix), np.ascontiguousarray(maps[..., 2:]))
+            np.save(os.path.join(sdir, "cost_maps", name + suffix), np.ascontiguousarray(maps[..., 1]))
+
+    def count_work(ref_id, geom):
+        H, W = problems[ref_id][1].shape
+        hyp = H * W * len(problems[ref_id][0]) * options.num_depths
+        images = H * W * (1 + len(problems[ref_id][0]) * (2 if geom else 1))
+        PHASES.count("stereo_view_passes")
+        PHASES.count("stereo_hyp", hyp)
+        PHASES.count("stereo_tap_hyp", hyp * taps)
+        PHASES.count("stereo_bytes", 4 * (images + 5 * H * W))
+        if geom:
+            PHASES.count("stereo_hyp_geom", hyp)
 
     problems = {}
     for ref_id in rec.registered_ids:
-        prob = view_problem(ref_id)
+        with PHASES.phase("stereo.problem"):
+            prob = view_problem(ref_id)
         if prob is not None:
             problems[ref_id] = prob
 
@@ -213,7 +240,7 @@ def run_patch_match_stereo(
     ids = list(problems)
     n = mesh.size if mesh is not None else 1
 
-    def sweep(src_depths_of=None) -> dict:
+    def sweep(suffixes, src_depths_of=None) -> dict:
         depth_of = {}
         for g in range(0, len(ids), n):
             group = ids[g : g + n]
@@ -221,14 +248,20 @@ def run_patch_match_stereo(
             geom = {}
             if src_depths_of is not None:
                 geom = dict(src_depths=[src_depths_of(i) for i in group], use_geom=True)
-            maps = dist_mvs.plane_sweep_batch(*batch, sopts, mesh=mesh, device=dev, **geom)
-            for i, depth, cost, normal in zip(group, *maps):
-                save_maps(i, depth, cost, normal)
+            with PHASES.phase("stereo.sweep"):
+                maps = dist_mvs.plane_sweep_batch(*batch, sopts, mesh=mesh, device=dev, **geom)
+                fetched = [fetch(*m) for m in zip(*maps)]
+            with PHASES.phase("stereo.write"):
+                for i, m in zip(group, fetched):
+                    write_maps(i, m, suffixes)
+            for i, depth in zip(group, maps[0]):
+                count_work(i, src_depths_of is not None)
                 depth_of[i] = depth
         return depth_of
 
-    # pass 1: photometric-only sweeps (the reference's non-geom first run)
-    photo_depth = sweep()
+    # pass 1: photometric-only sweeps (the reference's non-geom first run),
+    # kept as <name>.photometric.npy; without a second pass they are final
+    photo_depth = sweep([".photometric.npy"] if options.geom_consistency else [".photometric.npy", ".npy"])
 
     # pass 2: rerun with the geometric-consistency term against the sources'
     # pass-1 depth maps (PatchMatchController geom-consistent rerun)
@@ -241,7 +274,7 @@ def run_patch_match_stereo(
                 for s in problems[ref_id][0]
             ])
 
-        sweep(src_depths_of)
+        sweep([".npy"], src_depths_of)
     return len(problems)
 
 
@@ -306,28 +339,32 @@ def run_stereo_fusion(
         def put(a):
             return torch.as_tensor(np.asarray(a, np.float32), device=dev)
 
-        mask_d = stereo_ops.consistency_mask(
-            depth_on_device(ref_id), put(cost), d_os, put(K), put(np.stack(R_os)), put(np.stack(t_os)), sopts,
-        )
-        with PHASES.phase("fusion_fetch"):
-            mask = mask_d.cpu().numpy()
+        with PHASES.phase("fusion.mask"):
+            mask_d = stereo_ops.consistency_mask(
+                depth_on_device(ref_id), put(cost), d_os, put(K), put(np.stack(R_os)), put(np.stack(t_os)), sopts,
+            )
+            with PHASES.phase("fusion_fetch"):
+                mask = mask_d.cpu().numpy()
         ys, xs = np.nonzero(mask)
         counts.append(int(ys.size))
         if ys.size == 0:
             continue
-        z = depth[ys, xs]
-        Kinv = np.linalg.inv(K)
-        pix = np.stack([xs, ys, np.ones_like(xs)], -1).astype(np.float32)
-        x_cam = (pix @ Kinv.T) * z[:, None]
-        qi, ti = np_geom.se3_inverse(q_r, t_r)
-        x_w = np_geom.quat_rotate(qi, x_cam) + np_geom.projection_center(q_r, t_r)
-        n_w = np_geom.quat_rotate(qi, normal[ys, xs])
-        if images is not None:
-            img0 = images[ref_id]
-            g = (np.clip(img0[np.minimum((ys / scale).astype(int), img0.shape[0] - 1), np.minimum((xs / scale).astype(int), img0.shape[1] - 1)] * 255, 0, 255)).astype(np.uint8)
-            col = np.stack([g, g, g], -1)
-        else:
-            col = np.full((ys.size, 3), 128, np.uint8)
+        with PHASES.phase("fusion.points"):
+            z = depth[ys, xs]
+            Kinv = np.linalg.inv(K)
+            pix = np.stack([xs, ys, np.ones_like(xs)], -1).astype(np.float32)
+            x_cam = (pix @ Kinv.T) * z[:, None]
+            qi, ti = np_geom.se3_inverse(q_r, t_r)
+            x_w = np_geom.quat_rotate(qi, x_cam) + np_geom.projection_center(q_r, t_r)
+            n_w = np_geom.quat_rotate(qi, normal[ys, xs])
+            if images is not None:
+                img0 = images[ref_id]
+                rows = np.minimum((ys / scale).astype(int), img0.shape[0] - 1)
+                cols = np.minimum((xs / scale).astype(int), img0.shape[1] - 1)
+                g = np.clip(img0[rows, cols] * 255, 0, 255).astype(np.uint8)
+                col = np.stack([g, g, g], -1)
+            else:
+                col = np.full((ys.size, 3), 128, np.uint8)
         all_pts.append(x_w)
         all_nrm.append(n_w)
         all_col.append(col)
@@ -340,6 +377,7 @@ def run_stereo_fusion(
     pts = np.concatenate(all_pts)
     nrm = np.concatenate(all_nrm)
     col = np.concatenate(all_col)
-    out = output_path or os.path.join(workspace, "fused.ply")
-    ply_io.write_ply(out, pts, nrm, col)
+    with PHASES.phase("fusion.points"):
+        out = output_path or os.path.join(workspace, "fused.ply")
+        ply_io.write_ply(out, pts, nrm, col)
     return pts, nrm, col

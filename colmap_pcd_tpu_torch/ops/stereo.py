@@ -39,10 +39,15 @@ import torch.nn.functional as F
 
 Tensor = torch.Tensor
 
-# the memory a chunk of depths may take ([Dc, S, H, W] intermediates)
+# the memory a sweep may take: its chunk of depths ([Dc, S, H, W]
+# intermediates) and the reference's bilateral weights beside it
 _CHUNK_BYTES = {"cuda": 8 << 30, "cpu": 512 << 20}
 # f32 [S, H, W] slices live per depth at a chunk's peak: 64 depths of 4
-# sources at 640x480 peaked at 7 965.5 MiB on an H100 (chip_smoke.py), ~25
+# sources at 640x480, r = 3, peaked at 7 965.5 MiB on an H100
+# (chip_smoke.py), ~25; at 1280x960, r = 5, the geometric pass takes 445
+# MiB a depth (23.7 slices) beside 1 203 MiB that no chunk size moves,
+# most of it the bilateral weights (8 327.9 MiB at 16 depths, 1.7% over
+# the budget): so the weights come off the budget first
 _SLICES_PER_DEPTH = 26
 
 
@@ -259,11 +264,13 @@ def _ncc_cost(ref: Tensor, warped: Tensor, wvalid: Tensor, box, r: int) -> Tenso
 
 def depth_chunk(opts: StereoOptions, S: int, H: int, W: int, D: int, device: torch.device) -> int:
     """Depths per batch: opts.depth_chunk, or as many as the device's chunk
-    budget holds, spread evenly over the fewest chunks."""
+    budget holds beside the bilateral weights (w and w * ref, (2r+1)^2 f32
+    [H, W] planes each), spread evenly over the fewest chunks."""
     if opts.depth_chunk > 0:
         return min(opts.depth_chunk, D)
+    weights = 2 * (2 * opts.window_radius + 1) ** 2 * H * W * 4 if opts.sigma_color > 0 else 0
     per_depth = _SLICES_PER_DEPTH * S * H * W * 4
-    most = max(1, _CHUNK_BYTES.get(device.type, _CHUNK_BYTES["cpu"]) // per_depth)
+    most = max(1, (_CHUNK_BYTES.get(device.type, _CHUNK_BYTES["cpu"]) - weights) // per_depth)
     n_chunks = -(-D // most)
     return -(-D // n_chunks)
 

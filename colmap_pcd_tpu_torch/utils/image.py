@@ -34,10 +34,11 @@ def imread_rgb(path: str) -> np.ndarray:
 
 def resize_max(img: np.ndarray, max_size: int) -> tuple[np.ndarray, float]:
     """Downscale so max(H, W) <= max_size. Returns (image, scale_factor)
-    (SiftExtractionOptions.max_image_size handling, feature/extraction.cc)."""
+    (SiftExtractionOptions.max_image_size handling, feature/extraction.cc).
+    A max_size <= 0 keeps the image whole (COLMAP's -1: no limit)."""
     H, W = img.shape[:2]
     m = max(H, W)
-    if m <= max_size:
+    if max_size <= 0 or m <= max_size:
         return img, 1.0
     scale = max_size / m
     from PIL import Image as PILImage

@@ -630,3 +630,55 @@ def test_dense_commands_never_import_jax(dense_run):
     for mesh in (plane + "/poisson.ply", ring + "/delaunay-dense.ply", ring + "/delaunay-sparse.ply"):
         verts, faces = ply_io.read_ply_mesh(mesh)
         assert len(faces) > 0, mesh
+
+
+def test_dense_commands_take_colmap_widths(tmp_path, capsys):
+    """patch_match_stereo and stereo_fusion take COLMAP's --PatchMatchStereo.*
+    and --StereoFusion.* flags for DenseOptions' fields, and those whose
+    values the plane sweep holds fixed at that value (another value, or a
+    flag the port has no counterpart of, raises; without flags the defaults
+    hold), and the widths reach the stage: the whole view (max_image_size
+    -1), one pass kept under both names, a bank of 8 depths."""
+    from colmap_pcd_tpu_torch.models.mvs import DenseOptions
+    from test_stereo import F, H, W, render_plane
+
+    assert cli._dense_options(["--workspace_path", "w"]) == (DenseOptions(), ["--workspace_path", "w"])
+    opts, rest = cli._dense_options(["--PatchMatchStereo.window_radius", "5", "--workspace_path", "w",
+                                     "--PatchMatchStereo.geom_consistency", "0",
+                                     "--PatchMatchStereo.filter_min_num_consistent", "3",
+                                     "--PatchMatchStereo.max_image_size", "-1",
+                                     "--PatchMatchStereo.geom_consistency_regularizer", "0.3",
+                                     "--PatchMatchStereo.geom_consistency_max_cost", "3",
+                                     "--PatchMatchStereo.filter_min_ncc", "0.1", "--StereoFusion.max_depth_error",
+                                     "0.01"])
+    assert rest == ["--workspace_path", "w"]
+    assert opts == DenseOptions(window_radius=5, geom_consistency=False, min_consistent=3, max_image_size=-1)
+    with pytest.raises(ValueError, match="fixed at 0.01"):
+        cli._dense_options(["--StereoFusion.max_depth_error", "0.02"])
+    with pytest.raises(ValueError, match="unknown option"):
+        cli._dense_options(["--PatchMatchStereo.num_samples", "15"])
+
+    ws = tmp_path / "ws"
+    rec = Reconstruction()
+    rec.add_camera(Camera(1, 1, W, H, np.asarray([F, F, W / 2, H / 2])))
+    os.makedirs(ws / "images")
+    for i, c in enumerate([np.zeros(3), np.asarray([0.35, 0.0, 0.0]), np.asarray([0.0, 0.3, 0.0])], 1):
+        rec.add_image(Image(i, f"v{i}.png", 1, qvec=np.asarray([1.0, 0, 0, 0]), tvec=-c, xys=np.zeros((4, 2))))
+        rec.register_image(i)
+        PILImage.fromarray((render_plane(c, 10.0) * 255).astype(np.uint8)).save(ws / "images" / f"v{i}.png")
+    for k in range(4):
+        rec.add_point3D(np.asarray([(k % 2 - 0.5) * 2.0, (k // 2 - 0.5) * 1.5, 10.0]), [(1, k), (2, k), (3, k)])
+    rec.write(str(ws / "sparse"))
+    assert run("patch_match_stereo", "--workspace_path", str(ws), "--PatchMatchStereo.max_image_size", "-1",
+               "--PatchMatchStereo.num_depths", "8", "--PatchMatchStereo.window_radius", "2",
+               "--PatchMatchStereo.geom_consistency", "false") == 0
+    assert run("stereo_fusion", "--workspace_path", str(ws), "--output_path", str(ws / "fused.ply"),
+               "--PatchMatchStereo.filter_min_num_consistent", "1") == 0
+    out = capsys.readouterr().out
+    assert "Computed depth/normal maps for 3 views" in out
+    for i in (1, 2, 3):
+        depth = np.load(ws / "stereo" / "depth_maps" / f"v{i}.png.npy")
+        assert depth.shape == (H, W) and len(np.unique(depth)) <= 8
+        np.testing.assert_array_equal(depth, np.load(ws / "stereo" / "depth_maps" / f"v{i}.png.photometric.npy"))
+    fused = int(re.search(r"Fused (\d+) points", out).group(1))
+    assert fused == len(ply_io.read_ply(str(ws / "fused.ply")).xyz) > 1000

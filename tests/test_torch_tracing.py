@@ -253,3 +253,47 @@ def test_track_screen_counters():
     assert tri.complete_image(opts, NEW_IMAGE) == 0
     pts, flagged = _screen_counts()
     assert pts - pts0 == 2 * len(ids) + free and flagged == flagged0
+
+
+def test_dense_spans_and_counters(tmp_path):
+    """The dense stage opens its layers' spans (a view's problem, each
+    view-pass's sweep through its fetch, the writes; fusion's mask through
+    its fetch and the points) and counts the sweeps' work: view-passes,
+    the H*W*S*D hypotheses of both passes, those times the window's taps,
+    the geometric pass's hypotheses and the bytes read and written once."""
+    from colmap_pcd_tpu_torch.models import mvs
+    from colmap_pcd_tpu_torch.models.reconstruction import Camera, Image, Reconstruction
+    from test_stereo import F, H, W, render_plane
+
+    centers = [np.zeros(3), np.asarray([0.35, 0.0, 0.0]), np.asarray([0.0, 0.3, 0.0])]
+    rec = Reconstruction()
+    rec.add_camera(Camera(1, 1, W, H, np.asarray([F, F, W / 2, H / 2])))
+    images = {}
+    for i, c in enumerate(centers, 1):
+        rec.add_image(Image(i, f"v{i}.png", 1, qvec=np.asarray([1.0, 0, 0, 0]), tvec=-c, xys=np.zeros((4, 2))))
+        rec.register_image(i)
+        images[i] = render_plane(c, 10.0)
+    for k in range(4):
+        rec.add_point3D(np.asarray([(k % 2 - 0.5) * 2.0, (k // 2 - 0.5) * 1.5, 10.0]), [(1, k), (2, k), (3, k)])
+    opts = mvs.DenseOptions(max_image_size=-1, num_depths=8, window_radius=2)
+    counters = ("stereo_view_passes", "stereo_hyp", "stereo_tap_hyp", "stereo_hyp_geom", "stereo_bytes")
+    before = {k: PHASES.counts.get(k, 0) for k in counters}
+    PHASES.start_recording()
+    try:
+        mvs.run_patch_match_stereo(str(tmp_path), opts, rec=rec, images=images, device="cpu")
+        mvs.run_stereo_fusion(str(tmp_path), options=opts, rec=rec, images=images, device="cpu")
+    finally:
+        spans = PHASES.stop_recording()
+    table = _table(spans)
+    assert {k: table[k]["count"] for k in ("stereo.problem", "stereo.sweep", "stereo.write", "stereo_fetch",
+                                           "fusion.mask", "fusion_fetch")} == {
+        "stereo.problem": 3, "stereo.sweep": 6, "stereo.write": 6, "stereo_fetch": 6, "fusion.mask": 3,
+        "fusion_fetch": 3}
+    assert table["fusion.points"]["count"] == 4  # each view's points, then the PLY
+    for name, start, end, parent, thread in spans:
+        if name in ("stereo_fetch", "fusion_fetch"):
+            assert spans[parent][0] == {"stereo_fetch": "stereo.sweep", "fusion_fetch": "fusion.mask"}[name]
+    added = {k: PHASES.counts.get(k, 0) - before[k] for k in counters}
+    hyp = H * W * 2 * 8  # two sources, eight depths a view
+    assert added == {"stereo_view_passes": 6, "stereo_hyp": 6 * hyp, "stereo_tap_hyp": 6 * hyp * 25,
+                     "stereo_hyp_geom": 3 * hyp, "stereo_bytes": 4 * H * W * (3 * (1 + 2) + 3 * (1 + 4) + 6 * 5)}
