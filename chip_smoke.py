@@ -10,12 +10,12 @@
 Phases, each printing its numbers on its own line:
   1. environment: the card's name and power limit (nvidia-smi), torch/CUDA;
   2. build: the hand-written CUDA kernels K2 (nn_argmin), K1 for float
-     descriptors (match_top2) and K1 for uint8 descriptors on the integer
-     tensor cores (match_top2_u8) from the sources in
-     colmap_pcd_tpu_torch/csrc, one nvcc each, started together, with their
-     build seconds and ptxas reports; meanwhile the pixel world's images are
-     rendered on the host (100 views of the corridor at 640x480, f = 500,
-     0.8 m step, and 4 at 1280x960);
+     descriptors (match_top2), K1 for uint8 descriptors on the integer
+     tensor cores (match_top2_u8) and the plane sweep (plane_sweep) from
+     the sources in colmap_pcd_tpu_torch/csrc, one nvcc each, started
+     together, with their build seconds and ptxas reports; meanwhile the
+     pixel world's images are rendered on the host (100 views of the
+     corridor at 640x480, f = 500, 0.8 m step, and 4 at 1280x960);
   3. K2 against its plain PyTorch version and the host kd-tree at the
      mapper's shapes (Q in {37, 4096} queries against the pixel world's
      ~0.5 M-point map and a ragged map). Times: CUDA events around repeated
@@ -153,7 +153,10 @@ Phases, each printing its numbers on its own line:
      --dense 1 on the first 10 views with the lidar mapper's flags; then one
      view's plane_sweep with both passes on the card and on the CPU on the
      same inputs, and twice on the card (CUDA-event times, kernels per pass,
-     peak memory); the splat and spectral solve and the whole Poisson mesh
+     peak memory); the sweep kernel timed beside the plain route on the
+     card and its bound, and held to the plain route's maps, at that view's
+     shape and at the dense cell's (1280x960, r = 5, 4 sources, 64 depths,
+     both passes); the splat and spectral solve and the whole Poisson mesh
      twice on the card; the point-to-plane distance to the lidar map of
      every fused point and every mesh vertex (K2 through
      LidarMap.nn_query), K2 timed at the fused cloud's query count beside
@@ -202,19 +205,25 @@ Phases, each printing its numbers on its own line:
      centre within 5 mm after a sim(3) alignment, and GR6P's rotation error
      is < 1e-3 rad; the dense stage (DENSE_SAME_DEPTH and the constants
      beside it): maps for every registered view with a source, the card's
-     sweep equal to the CPU's, two card runs of the sweep, the splat and the
-     mesh byte-identical, a non-empty fused cloud and Poisson mesh within
-     their point-to-plane bars, faces in both Delaunay meshes and in the
-     one-click pipeline's mesh; the sharded mapper and the unsharded one on
-     the same 30 views >= 95% registered at ATE < 0.10 m and scale error
-     < 2%, their ATEs within 0.02 m of each other, the
+     sweep equal to the CPU's, the sweep kernel's depth and cost maps equal
+     to the plain route's on the card to the bit at phase 12's view and at
+     the dense cell's shape, both passes, the kernel launched by
+     patch_match_stereo, by automatic_reconstructor --dense 1 and by the
+     sharded and the sequential stereo, two card runs of the sweep, the
+     splat and the mesh byte-identical, a non-empty fused cloud and Poisson
+     mesh within their point-to-plane bars, faces in both Delaunay meshes
+     and in the one-click pipeline's mesh; the sharded mapper and the
+     unsharded one on the same 30 views >= 95% registered at ATE < 0.10 m
+     and scale error < 2%, their ATEs within 0.02 m of each other, the
      sharded MatchPool's (idx, ok) identical to the unsharded pool's, the
      sharded stereo's depth identical to the sequential run's on every
      view.
 
 `--kernels-only` stops after phase 4 (on a corridor map built like the
-pixel world's) and prints no result line: a short first look at a changed
-kernel. `--long-images N` runs phases 1-2 and phase 6 at N views (450 is
+pixel world's) and the sweep kernel's timing at the dense cell's shape,
+holding its maps to the plain route's to the bit, and prints no result
+line: a short first look at a changed kernel.
+`--long-images N` runs phases 1-2 and phase 6 at N views (450 is
 the JAX package's BENCH_450_r5.json length, 16.8 mm there), prints the
 mapper's numbers beside that ATE and holds them to phase 6's bars, and
 prints no result line either.
@@ -2023,7 +2032,111 @@ def _sweep_check(ws: str, rec, ref_id: int) -> dict:
     res["photo_kernels"] = _count_kernels(lambda: stereo.plane_sweep(*t_in[:7]))
     res["geom_kernels"] = _count_kernels(
         lambda: stereo.plane_sweep(*t_in[:7], src_depths=t_in[7], use_geom=True))
+    res["timing"] = sweep_timing(t_in, stereo.StereoOptions())
     return res
+
+
+def _sweep_work(H: int, W: int, S: int, D: int, r: int, geom: bool) -> tuple[float, float]:
+    """(bytes, f32 operations) of one view-pass, counted as
+    benchmarks/stereo_roofline.py counts the dense stage's counters: 8
+    operations a window tap of a hypothesis, 30 a hypothesis, 40 more a
+    hypothesis of the geometric pass; the images (and source depth maps)
+    read once, five maps written once."""
+    hyp = H * W * S * D
+    ops = 8.0 * hyp * (2 * r + 1) ** 2 + 30.0 * hyp + (40.0 * hyp if geom else 0.0)
+    return 4.0 * (H * W * (1 + S * (2 if geom else 1)) + 5 * H * W), ops
+
+
+def sweep_timing(t_in: list, opts) -> dict:
+    """Both passes of one view's sweep on the card: the whole call
+    (`plane_sweep`: the reference's weights and terms, the one kernel
+    launch, the normals) and the kernel launch alone by CUDA events (mean
+    of 3 after a warm-up), the plain route's call once, the bound; and the
+    kernel's maps against the plain route's on the card (the pixels whose
+    depth or cost differs in any bit, and the largest cost difference)."""
+    import torch
+
+    from colmap_pcd_tpu_torch.ops import stereo, stereo_kernel
+
+    ref, srcs, K, Ks, R, t, depths, prior = t_in
+    H, W = ref.shape
+    S, D, r = srcs.shape[0], depths.shape[0], opts.window_radius
+    w, *terms = stereo._bilateral_ref_terms(ref, opts)
+    Hm = stereo._plane_homography(stereo._inv3(K), Ks, R, t, depths).contiguous()
+    k = min(opts.top_k, S)
+    out = {"shape": f"{W}x{H}, r = {r}, S = {S}, D = {D}"}
+    for label, geom in (("photometric", False), ("geometric", True)):
+        kw = dict(src_depths=prior, use_geom=True) if geom else {}
+        g = stereo_kernel.Geometric(prior, stereo._inv3(Ks), R, t, K, opts.geom_regularizer,
+                                    opts.geom_max_cost) if geom else None
+        big = stereo._first_cost(opts, geom)
+        call_ms = _cuda_ms(lambda: stereo.plane_sweep(*t_in[:7], opts, **kw), 3)
+        kernel_ms = _cuda_ms(lambda: stereo_kernel.plane_sweep_cuda(
+            ref, srcs, Hm, depths, r, w, tuple(terms), k, big, g), 3)
+        kernel = stereo.plane_sweep(*t_in[:7], opts, **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plain = stereo.plane_sweep_plain(*t_in[:7], opts, **kw)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        bound_ms, bound_by = _bound(*_sweep_work(H, W, S, D, r, geom), F32_FLOPS)
+        out[label] = {
+            "call_ms": call_ms, "kernel_ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "reached": bound_ms / kernel_ms,
+            "depth_differs": int((kernel[0] != plain[0]).sum()),
+            "cost_differs": int((kernel[1] != plain[1]).sum()),
+            "max_cost_err": float((kernel[1] - plain[1]).abs().max()),
+        }
+        del plain
+    return out
+
+
+def cell_sweep_timing(seed: int) -> dict:
+    """`sweep_timing` at the dense cell's shape (benchmarks' corridor_dense:
+    1280x960, r = 5, 4 sources, 64 depths, bilateral, both passes) on a
+    textured plane seen from four shifted sources."""
+    import torch
+
+    from colmap_pcd_tpu_torch.ops import stereo
+
+    rng = np.random.default_rng(seed)
+    H, W, S, D, f = 960, 1280, 4, 64, 1000.0
+    ys, xs = np.mgrid[0:H, 0:W].astype(np.float32)
+    freq = rng.uniform(2.0, 12.0, (6, 2))
+
+    def view(cx, cy):
+        wx, wy = cx + (xs - W / 2) / f * 8.0, cy + (ys - H / 2) / f * 8.0
+        return (sum(np.sin(a * wx + 0.7 * k) * np.cos(b * wy) for k, (a, b) in enumerate(freq)) / 12
+                + 0.5).astype(np.float32)
+
+    c = rng.normal(0, 0.3, (S, 2))
+    K = np.asarray([[f, 0, W / 2], [0, f, H / 2], [0, 0, 1]], np.float32)
+    inputs = (view(0.0, 0.0), np.stack([view(x, y) for x, y in c]), K, np.stack([K] * S),
+              np.stack([np.eye(3, dtype=np.float32)] * S), np.concatenate([-c, np.zeros((S, 1))], 1),
+              1.0 / np.linspace(1 / 16.0, 1 / 4.0, D), 8.0 + rng.normal(0, 0.05, (S, H, W)))
+    t_in = [torch.as_tensor(np.asarray(a, np.float32), device="cuda") for a in inputs]
+    return sweep_timing(t_in, stereo.StereoOptions(window_radius=5))
+
+
+def _log_sweep_timing(tag: str, tm: dict):
+    for label in ("photometric", "geometric"):
+        x = tm[label]
+        _log(f"[{tag}] {tm['shape']}, {label}: call {x['call_ms']:.3f} ms, kernel {x['kernel_ms']:.3f} ms "
+             f"(CUDA events, mean of 3), bound {x['bound_ms']:.3f} ms ({x['bound_by']}), "
+             f"{100 * x['reached']:.1f}% reached; plain route {x['plain_ms']:.1f} ms (one call); "
+             f"against the plain route on the card: {x['depth_differs']} depths and {x['cost_differs']} costs "
+             f"differ (largest cost difference {x['max_cost_err']:.3g})")
+
+
+def _require_sweep_maps(tm: dict):
+    """The sweep kernel's depth and cost maps equal the plain route's on
+    the card to the bit, both passes (csrc/plane_sweep.cu rounds each
+    product and sum as the plain route's launches do)."""
+    for label in ("photometric", "geometric"):
+        x = tm[label]
+        if x["depth_differs"] or x["cost_differs"]:
+            raise AssertionError(f"sweep kernel at {tm['shape']}, {label}: {x['depth_differs']} depths and "
+                                 f"{x['cost_differs']} costs differ from the plain route's on the card")
 
 
 def _poisson_twice(points: np.ndarray, normals: np.ndarray) -> dict:
@@ -2175,6 +2288,7 @@ def run_dense(args, world: dict, st: dict, tmp: str) -> dict:
 
     ids = sorted(with_source)
     res["sweep"] = _sweep_check(ws, rec, ids[len(ids) // 2])
+    res["sweep_cell"] = cell_sweep_timing(args.seed + 12)
     res["poisson_twice"] = _poisson_twice(fused.xyz, fused.normals)
     d_fused, res["k2_fused"] = _point_to_plane(lmap, fused.xyz)
     d_mesh, _ = _point_to_plane(lmap, verts)
@@ -2196,6 +2310,8 @@ def _require_dense(dn: dict):
             raise AssertionError(f"dense: the card's {label} sweep against the CPU's: {c}")
     if not sw["rerun_identical"]:
         raise AssertionError("dense: two card runs of the sweep differ")
+    _require_sweep_maps(sw["timing"])
+    _require_sweep_maps(dn["sweep_cell"])
     pt = dn["poisson_twice"]
     if not (pt["grid_identical"] and pt["mesh_identical"]):
         raise AssertionError(f"dense: two card runs of the splat or the mesh differ: {pt}")
@@ -2323,12 +2439,14 @@ def _sharded_stereo(st: dict, mesh, tmp: str, n_views: int = 10) -> dict:
     for label, kw in (("sharded", dict(mesh=mesh)), ("sequential", dict(device="cuda:0"))):
         ws = os.path.join(tmp, f"stereo_{label}")
         rec = _dense_workspace(st["undistorted_workspace"], ws, n_views)
-        n, seconds, _ = counted(lambda: mvs.run_patch_match_stereo(ws, opts, rec=rec, **kw), {})
-        runs[label] = (ws, rec, n, seconds)
-    ws_s, rec, n_s, s_seconds = runs["sharded"]
-    ws_q, _, n_q, q_seconds = runs["sequential"]
+        n, seconds, launches = counted(lambda: mvs.run_patch_match_stereo(ws, opts, rec=rec, **kw),
+                                       kernel_counters())
+        runs[label] = (ws, rec, n, seconds, launches["plane_sweep_cuda"])
+    ws_s, rec, n_s, s_seconds, s_launches = runs["sharded"]
+    ws_q, _, n_q, q_seconds, q_launches = runs["sequential"]
     srcs = {i: mvs._select_sources(rec, i, opts.num_src_images) for i in rec.registered_ids}
     res = {"views": n_s, "sequential_views": n_q, "seconds": s_seconds, "sequential_seconds": q_seconds,
+           "launches": s_launches, "sequential_launches": q_launches,
            "sources": sorted({len(s) for s in srcs.values() if s}), "identical": [], "not_identical": []}
     for i in sorted(i for i, s in srcs.items() if s):
         name = rec.images[i].name.replace("/", "_") + ".npy"
@@ -2415,7 +2533,7 @@ def main(argv=None) -> int:
     sys.path.insert(0, REPO)
     sys.path.insert(0, os.path.join(REPO, "tests"))
     from colmap_pcd_tpu_torch.models.lidar_map import LidarMap
-    from colmap_pcd_tpu_torch.ops import match_kernel, nn_kernel
+    from colmap_pcd_tpu_torch.ops import match_kernel, nn_kernel, stereo_kernel
     from colmap_pcd_tpu_torch.ops.cuda_build import BUILD_SECONDS
 
     # 1. environment
@@ -2441,11 +2559,12 @@ def main(argv=None) -> int:
         os.makedirs(os.path.join(tmp, "pixels"))
         rendering = None if args.kernels_only else pool.submit(
             render_pixel_world, args, os.path.join(tmp, "pixels"))
-        for fut in [pool.submit(f) for f in (nn_kernel.build, match_kernel.build, match_kernel.build_u8)]:
+        for fut in [pool.submit(f) for f in (nn_kernel.build, match_kernel.build, match_kernel.build_u8,
+                                             stereo_kernel.build)]:
             fut.result()
         _log(f"[build] {len(BUILD_SECONDS)} sources built and loaded in {time.perf_counter() - t0:.2f} s: "
              + ", ".join(f"{stem}.cu {sec:.2f} s" for stem, sec in sorted(BUILD_SECONDS.items())))
-        for stem in ("nn_argmin", "match_top2", "match_top2_u8"):
+        for stem in ("nn_argmin", "match_top2", "match_top2_u8", "plane_sweep"):
             for line in _ptxas_lines(stem):
                 _log(f"[build] {stem}: {line}")
 
@@ -2456,6 +2575,9 @@ def main(argv=None) -> int:
             lmap = LidarMap.from_arrays(pts, nrm, device="cpu")
             check_kernel(lmap.points, np.random.default_rng(args.seed + 1))
             check_match_kernel(np.random.default_rng(args.seed + 2))
+            tm = cell_sweep_timing(args.seed + 12)
+            _log_sweep_timing("sweep", tm)
+            _require_sweep_maps(tm)
             _log("[kernels-only] phases 2-4 passed; the main path was not driven")
             return 0
 
@@ -2711,6 +2833,8 @@ def main(argv=None) -> int:
              f"{sw['photo_kernels']} and {sw['geom_kernels']}, peak {sw['peak_bytes'] / 2**20:.1f} MiB above "
              f"the inputs; against the CPU ({sw['cpu_seconds']:.3f} s there): photometric {sw['photometric']}, "
              f"geometric {sw['geometric']}; two card runs identical: {sw['rerun_identical']}")
+        _log_sweep_timing("dense", sw["timing"])
+        _log_sweep_timing("dense", dn["sweep_cell"])
         pt = dn["poisson_twice"]
         _log(f"[dense] splat + spectral solve at depth 7 of {pt['points']} points: {pt['splat_solve_ms']:.3f} ms "
              f"(CUDA events, mean of 2); twice on the card: grid identical {pt['grid_identical']}, mesh "
@@ -2783,6 +2907,13 @@ def main(argv=None) -> int:
     for path, n in f32_launches.items():
         if n <= 0:
             raise AssertionError(f"the {path} run never launched the float K1")
+    sweep_launches = {label: dn["commands"][label]["launches"]["plane_sweep_cuda"]
+                      for label in ("patch_match_stereo", "automatic_reconstructor --dense 1")}
+    sweep_launches.update({"sharded stereo": sh["stereo"]["launches"],
+                           "sequential stereo": sh["stereo"]["sequential_launches"]})
+    for path, n in sweep_launches.items():
+        if n <= 0:
+            raise AssertionError(f"the {path} run never launched the sweep kernel")
     # the corridor's value-noise texture gives ~450 keypoints per view above
     # the peak threshold (both packages find the same number on one view)
     if len(px["keypoints"]) != args.n_images or min(px["keypoints"]) < 300 \
@@ -2815,7 +2946,7 @@ def main(argv=None) -> int:
     def entry(name, source, line, launches, rec, **more):
         return {
             "name": name, "route": "cuda", "source": f"colmap_pcd_tpu_torch/csrc/{source}",
-            "replaces": f"colmap_pcd_tpu/ops/pallas_kernels.py:{line}", "launches": launches,
+            "replaces": f"colmap_pcd_tpu/ops/pallas_kernels.py:{line}" if line else None, "launches": launches,
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
             "device_ms": rec["device_ms"], **more, "shapes": rec["shapes"],
@@ -2830,6 +2961,16 @@ def main(argv=None) -> int:
     k2["shapes"][f"Q={k2f['Q']} N={k2f['N']} (fused cloud, point-to-plane)"] = {
         **{k: k2f[k] for k in ("ms", "device_ms", "host_kdtree_ms", "bound_ms", "bound_by")},
         "plain_ms": None, "library_ms": None}
+    # the sweep kernel replaces no Pallas kernel; its headline is the dense
+    # cell's shape, photometric pass (CUDA events around the launch alone)
+    sweep_shapes = {f"{tm['shape']}, {label}": {k: tm[label][k] for k in (
+        "kernel_ms", "call_ms", "plain_ms", "bound_ms", "bound_by", "max_cost_err")}
+        for tm in (dn["sweep"]["timing"], dn["sweep_cell"]) for label in ("photometric", "geometric")}
+    cell_photo = dn["sweep_cell"]["photometric"]
+    sweep_rec = {"max_abs_err": max(x["max_cost_err"] for x in sweep_shapes.values()),
+                 "ms": cell_photo["kernel_ms"], "plain_ms": cell_photo["plain_ms"],
+                 "bound_ms": cell_photo["bound_ms"], "bound_by": cell_photo["bound_by"], "library_ms": None,
+                 "device_ms": None, "shapes": sweep_shapes}
     clock("the result")
     print(json.dumps({"kernels": [
         entry("nn_argmin", "nn_argmin.cu", 191, k2_launches["pixel world"], k2,
@@ -2838,6 +2979,8 @@ def main(argv=None) -> int:
               mma="fma", launches_by_path=f32_launches),
         entry("match_top2_u8", "match_top2_u8.cu", 94, u8_launches["pixel world"],
               k1["match_top2_u8"], mma="wgmma", launches_by_path=u8_launches),
+        entry("plane_sweep", "plane_sweep.cu", None, sweep_launches["patch_match_stereo"], sweep_rec,
+              launches_by_path=sweep_launches),
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

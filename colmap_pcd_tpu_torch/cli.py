@@ -1043,7 +1043,7 @@ def _dense_options(argv):
     flags, the other arguments). Other flags of the two namespaces raise;
     fields without a flag keep their defaults."""
     from .models.mvs import DenseOptions
-    from .ops.stereo import StereoOptions
+    from .ops.stereo import MAX_WINDOW_RADIUS, StereoOptions
     from .utils.config import _coerce
 
     options, fixed, rest = DenseOptions(), StereoOptions(), []
@@ -1061,6 +1061,9 @@ def _dense_options(argv):
                 raise ValueError(f"{a} is fixed at {held} in the plane sweep")
         else:
             raise ValueError(f"unknown option {a}")
+    if not 1 <= options.window_radius <= MAX_WINDOW_RADIUS:
+        raise ValueError(f"--PatchMatchStereo.window_radius {options.window_radius}: COLMAP takes 1 to "
+                         f"{MAX_WINDOW_RADIUS}")
     return options, rest
 
 

@@ -20,7 +20,9 @@ consistency mask through its fetch, `fusion_fetch`) and `fusion.points`
 `stereo_view_passes`; `stereo_hyp`, the (pixel, source, depth) hypotheses
 H*W*S*D; `stereo_tap_hyp`, those times the (2r+1)^2 window taps;
 `stereo_hyp_geom`, the hypotheses of the geometric pass; `stereo_bytes`,
-the images (and source depth maps) read once and the maps written once.
+the images (and source depth maps) read once and the maps written once;
+`stereo_kernel_passes`, the view-passes swept by the hand kernel
+(ops/stereo_kernel.py; 0 where the views lie on the CPU).
 Both passes sweep the views through parallel/dist_mvs.py, in groups of
 one view per device of `mesh=` (parallel/mesh.py; without a mesh one view
 at a time), as the JAX package's `_run_patch_match_sharded` fans them
@@ -40,6 +42,7 @@ from .. import device as device_mod
 from ..io import ply as ply_io
 from ..ops import np_geom
 from ..ops import stereo as stereo_ops
+from ..ops import stereo_kernel
 from ..parallel import dist_mvs
 from ..utils import image as image_utils
 from ..utils.logging_utils import PHASES
@@ -248,9 +251,11 @@ def run_patch_match_stereo(
             geom = {}
             if src_depths_of is not None:
                 geom = dict(src_depths=[src_depths_of(i) for i in group], use_geom=True)
+            launches = stereo_kernel.plane_sweep_cuda.launches
             with PHASES.phase("stereo.sweep"):
                 maps = dist_mvs.plane_sweep_batch(*batch, sopts, mesh=mesh, device=dev, **geom)
                 fetched = [fetch(*m) for m in zip(*maps)]
+            PHASES.count("stereo_kernel_passes", stereo_kernel.plane_sweep_cuda.launches - launches)
             with PHASES.phase("stereo.write"):
                 for i, m in zip(group, fetched):
                     write_maps(i, m, suffixes)

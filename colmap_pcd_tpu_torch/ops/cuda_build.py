@@ -1,9 +1,9 @@
 """Build a hand-written CUDA source of csrc/ into a plain-C shared library.
 
-Each kernel module (ops/nn_kernel.py, ops/match_kernel.py) compiles its
-source with nvcc for sm_90a at its first launch, into
-colmap_pcd_tpu_torch/build/ keyed by a hash of the source, and binds it
-with ctypes; importing a kernel module needs no CUDA toolkit. The ptxas
+Each kernel module (ops/nn_kernel.py, ops/match_kernel.py,
+ops/stereo_kernel.py) compiles its source with nvcc for sm_90a at its first
+launch, into colmap_pcd_tpu_torch/build/ keyed by a hash of the source, and
+binds it with ctypes; importing a kernel module needs no CUDA toolkit. The ptxas
 report (registers, shared memory, spills) and the build's seconds are kept
 in a `.log` beside the library; `BUILD_SECONDS` holds the seconds of every
 source this process compiled.

@@ -12,21 +12,33 @@ StereoFusion, src/mvs/fusion.{h,cc}):
   * depth = first argmin over the sweep; normals from depth differences,
   * the geometric-consistency mask that fusion keeps points by.
 
-`plane_sweep` is batched natively over a chunk of depths and all S
-sources: every intermediate is a [Dc, S, H, W] tensor and each step one
-elementwise operation over it, so a chunk costs the same few hundred
-launches whatever Dc and S are. The sums keep the JAX package's order
-(the 49 taps one by one in offset order, box sums from zero in row-major
-order, the best-K mean in rank order); nothing goes through `conv2d`,
-whose summation order depends on the batch (ROADMAP queue 3). The small
-3x3 products and inverses are written out elementwise; divisions by
-constants divide by a tensor (a CUDA division by a host scalar multiplies
-by its reciprocal); the bilateral weights' `exp` runs in float64. So the
-CPU and the card compute the same floats. (XLA on the CPU contracts a*b+c
-into FMAs, so the JAX package's floats differ from these in the last bits:
-tests/test_torch_stereo.py states the tolerance.) The result does not
-depend on the chunk size: a chunk's first argmin is merged into the
-running best by a strict `<`, as the JAX package's scan over depths does.
+`plane_sweep` sends CUDA tensors to the hand-written kernel
+(ops/stereo_kernel.py, csrc/plane_sweep.cu): one launch a view-pass, the
+window sums in registers over warped tiles in shared memory, the best K
+sources picked by comparison and the depth scan inside the kernel. CPU
+tensors take the plain route (`plane_sweep_plain`, which also runs on the
+card as the kernel's yardstick), batched natively over a chunk of depths
+and all S sources: every intermediate is a [Dc, S, H, W] tensor and each
+step one elementwise operation over it, so a chunk costs the same few
+hundred launches whatever Dc and S are. Both routes share what depends on
+the reference alone (the homographies, the bilateral weights and the
+window terms of the reference), computed here in PyTorch. The sums keep
+the JAX package's order (the taps one by one in offset order, box sums
+from zero in row-major order, the best-K mean in rank order); nothing goes
+through `conv2d`, whose summation order depends on the batch (ROADMAP
+queue 3). The small 3x3 products and inverses are written out
+elementwise; divisions by constants divide by a tensor (a CUDA division by
+a host scalar multiplies by its reciprocal); the bilateral weights' `exp`
+runs in float64. The kernel takes the plain route's operations in the same
+order and rounds each as it does (no FMA contraction), so on the card both
+routes compute the same floats; the CPU's differ from them only where its
+vectorised `torch.sqrt`, which is not correctly rounded, is an ulp off
+(tests/test_torch_cuda.py states the tolerance). (XLA on the CPU
+contracts a*b+c into FMAs, so the JAX package's floats differ from these
+in the last bits: tests/test_torch_stereo.py states the tolerance.) The
+result does not depend on the chunk size: a chunk's first argmin is
+merged into the running best by a strict `<`, as the JAX package's scan
+over depths does, and as the kernel's scan over all depths does.
 No function here reads a value back to the host.
 """
 
@@ -37,10 +49,14 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from . import stereo_kernel
+
 Tensor = torch.Tensor
 
-# the memory a sweep may take: its chunk of depths ([Dc, S, H, W]
-# intermediates) and the reference's bilateral weights beside it
+# the memory the plain route's sweep may take: its chunk of depths ([Dc, S,
+# H, W] intermediates) and the reference's bilateral weights beside it. The
+# kernel route needs no chunks: it keeps a tile's sums on chip and holds
+# only the weights [(2r+1)^2, H, W] and the two [H, W] results
 _CHUNK_BYTES = {"cuda": 8 << 30, "cpu": 512 << 20}
 # f32 [S, H, W] slices live per depth at a chunk's peak: 64 depths of 4
 # sources at 640x480, r = 3, peaked at 7 965.5 MiB on an H100
@@ -49,6 +65,9 @@ _CHUNK_BYTES = {"cuda": 8 << 30, "cpu": 512 << 20}
 # most of it the bilateral weights (8 327.9 MiB at 16 depths, 1.7% over
 # the budget): so the weights come off the budget first
 _SLICES_PER_DEPTH = 26
+# COLMAP's largest PatchMatch window radius (kMaxPatchMatchWindowRadius);
+# the kernel takes every radius up to it
+MAX_WINDOW_RADIUS = 32
 
 
 class StereoOptions(NamedTuple):
@@ -177,45 +196,52 @@ def _plane_homography(K_ref_inv: Tensor, K_src: Tensor, R_rel: Tensor, t_rel: Te
     return _mm3(K_src[None], _mm3(M, K_ref_inv))
 
 
+def _ref_taps(ref: Tensor, r: int) -> list[Tensor]:
+    """The reference shifted to each window offset in offset order, the
+    border replicated: [H, W] planes."""
+    H, W = ref.shape
+    rp = F.pad(ref[None, None], (r, r, r, r), mode="replicate")[0, 0]
+    return [rp[r + dy : r + dy + H, r + dx : r + dx + W] for dy in range(-r, r + 1) for dx in range(-r, r + 1)]
+
+
 def _bilateral_ref_terms(ref: Tensor, opts: StereoOptions):
     """The reference-only pieces of bilaterally weighted NCC.
 
     Weight of window pixel at offset o from the center (patch_match.h:81-83):
         w_o = exp(-|o|^2 / (2 sigma_spatial^2)
                   - (I(p) - I(p+o))^2 / (2 sigma_color^2))
-    Returns (offsets, w [K,H,W], w * ref_sh [K,H,W], Wsum, mu_r, var_r); the
-    sums over K run in offset order."""
+    Returns (w [K,H,W], Wsum, mu_r, var_r); the sums over K run in offset
+    order."""
     r = opts.window_radius
     ss = opts.sigma_spatial if opts.sigma_spatial > 0 else float(r)
     sc = opts.sigma_color
     offs = [(dy, dx) for dy in range(-r, r + 1) for dx in range(-r, r + 1)]
-    H, W = ref.shape
-    rp = F.pad(ref[None, None], (r, r, r, r), mode="replicate")[0, 0]
-    ws, rsh = [], []
-    for dy, dx in offs:
-        sref = rp[r + dy : r + dy + H, r + dx : r + dx + W]
+    rsh = _ref_taps(ref, r)
+    w = torch.empty((len(offs), *ref.shape), dtype=torch.float32, device=ref.device)
+    for k, ((dy, dx), sref) in enumerate(zip(offs, rsh)):
         # in float64, rounded to f32 once: exp differs between the CPU's and
         # the card's f32 libraries, and the weights then equal on both
         diff = (ref - sref).double()
         arg = -(dy * dy + dx * dx) / (2.0 * ss * ss) - diff * diff / (2.0 * sc * sc)
-        ws.append(torch.exp(arg).float())
-        rsh.append(sref)
+        w[k] = torch.exp(arg).float()
     Wsum = mu = mu2 = torch.zeros_like(ref)
-    for w, s in zip(ws, rsh):
-        Wsum = Wsum + w
-        mu = mu + w * s
-        mu2 = mu2 + w * s * s
+    for k, s in enumerate(rsh):
+        Wsum = Wsum + w[k]
+        mu = mu + w[k] * s
+        mu2 = mu2 + w[k] * s * s
     Wsum = torch.clamp(Wsum, min=1e-8)
     mu_r = mu / Wsum
     var_r = torch.clamp(mu2 / Wsum - mu_r * mu_r, min=1e-8)
-    w = torch.stack(ws)
-    return offs, w, w * torch.stack(rsh), Wsum, mu_r, var_r
+    return w, Wsum, mu_r, var_r
 
 
-def _bilateral_ncc_cost(warped: Tensor, wvalid: Tensor, bil, r: int) -> Tensor:
-    """1 - bilaterally weighted zero-mean NCC over [..., H, W]. Invalid ->
-    cost 2. The taps are added one by one in offset order."""
-    offs, w, wr, Wsum, mu_r, var_r = bil
+def _bilateral_ncc_cost(warped: Tensor, wvalid: Tensor, bil, wr: Tensor, r: int) -> Tensor:
+    """1 - bilaterally weighted zero-mean NCC over [..., H, W]; bil is
+    `_bilateral_ref_terms`' result, wr the weights times the shifted
+    reference. Invalid -> cost 2. The taps are added one by one in offset
+    order."""
+    w, Wsum, mu_r, var_r = bil
+    offs = [(dy, dx) for dy in range(-r, r + 1) for dx in range(-r, r + 1)]
     H, W = warped.shape[-2:]
     lead = warped.shape[:-2]
     wp = F.pad(warped.reshape(-1, 1, H, W), (r, r, r, r), mode="replicate").reshape(*lead, H + 2 * r, W + 2 * r)
@@ -275,30 +301,33 @@ def depth_chunk(opts: StereoOptions, S: int, H: int, W: int, D: int, device: tor
     return -(-D // n_chunks)
 
 
-def plane_sweep(
-    ref: Tensor,  # [H,W] grayscale
-    srcs: Tensor,  # [S,Hs,Ws]
-    K_ref: Tensor,  # [3,3]
-    K_srcs: Tensor,  # [S,3,3]
-    R_rel: Tensor,  # [S,3,3] ref-cam -> src-cam rotation
-    t_rel: Tensor,  # [S,3]
-    depths: Tensor,  # [D] hypothesis bank (e.g. inverse-depth spaced)
-    opts: StereoOptions = StereoOptions(),
-    src_depths: Tensor | None = None,  # [S,Hs,Ws] prior source depth maps
-    use_geom: bool = False,
-):
-    """Returns (depth_map [H,W], cost_map [H,W], normal_map [H,W,3]) on the
-    inputs' device.
+def _first_cost(opts: StereoOptions, use_geom: bool) -> float:
+    """The running best's cost before the first depth: above any total."""
+    geom_slack = opts.geom_regularizer * opts.geom_max_cost
+    return 2.0 + (geom_slack if use_geom else 0.0) + 1e-3
 
-    Normals are in the reference camera frame, unit, pointing toward the
-    camera (negative z), from central depth differences that wrap around
-    at the border (`torch.roll`, as the JAX package's `jnp.roll`).
 
-    With use_geom=True and src_depths given, adds the geometric-consistency
-    term (patch_match.h:101-111): the forward-backward reprojection error of
-    each depth hypothesis against the source view's own depth map, capped at
-    geom_max_cost px, weighted by geom_regularizer.
-    """
+def _sweep_kernel(ref, srcs, K_ref, K_srcs, R_rel, t_rel, depths, opts, src_depths, use_geom):
+    """(best depth, its photometric cost) [H, W] of CUDA tensors: one launch
+    of the hand kernel over every depth and source."""
+    r = opts.window_radius
+    Hm = _plane_homography(_inv3(K_ref), K_srcs, R_rel, t_rel, depths).contiguous()
+    if opts.sigma_color > 0:
+        w, *terms = _bilateral_ref_terms(ref, opts)
+    else:
+        w, terms = None, _box_ref_terms(ref, r)
+    geom = None
+    if use_geom and src_depths is not None:
+        geom = stereo_kernel.Geometric(src_depths.contiguous(), _inv3(K_srcs), R_rel, t_rel, K_ref,
+                                       opts.geom_regularizer, opts.geom_max_cost)
+    return stereo_kernel.plane_sweep_cuda(
+        ref.contiguous(), srcs.contiguous(), Hm, depths.contiguous(), r, w, tuple(terms),
+        min(opts.top_k, srcs.shape[0]), _first_cost(opts, use_geom), geom)
+
+
+def _sweep_plain(ref, srcs, K_ref, K_srcs, R_rel, t_rel, depths, opts, src_depths, use_geom):
+    """(best depth, its photometric cost) [H, W] by the plain route, in
+    chunks of depths, on any device."""
     H, W = ref.shape
     S = srcs.shape[0]
     D = depths.shape[0]
@@ -306,7 +335,11 @@ def plane_sweep(
     K_ref_inv = _inv3(K_ref)
     r = opts.window_radius
     bilateral = opts.sigma_color > 0
-    terms = _bilateral_ref_terms(ref, opts) if bilateral else _box_ref_terms(ref, r)
+    if bilateral:
+        terms = _bilateral_ref_terms(ref, opts)
+        wr = terms[0] * torch.stack(_ref_taps(ref, r))
+    else:
+        terms = _box_ref_terms(ref, r)
     yy, xx = torch.meshgrid(
         torch.arange(H, dtype=torch.float32, device=dev),
         torch.arange(W, dtype=torch.float32, device=dev),
@@ -340,7 +373,7 @@ def plane_sweep(
         sx, sy = _warp_coords(Hm, xx, yy)  # [Dc, S, H, W]
         warped, wv = _sample(srcs, sx, sy)
         if bilateral:
-            photo = _bilateral_ncc_cost(warped, wv, terms, r)
+            photo = _bilateral_ncc_cost(warped, wv, terms, wr, r)
         else:
             photo = _ncc_cost(ref, warped, wv, terms, r)
         del warped, wv
@@ -358,9 +391,7 @@ def plane_sweep(
             ph = ph + p_sorted[:, j]
         return total / k, ph / k
 
-    geom_slack = opts.geom_regularizer * opts.geom_max_cost
-    big = 2.0 + (geom_slack if use_geom else 0.0) + 1e-3
-    best_cost = torch.full((H, W), big, dtype=torch.float32, device=dev)
+    best_cost = torch.full((H, W), _first_cost(opts, use_geom), dtype=torch.float32, device=dev)
     best_photo = torch.full((H, W), 2.0, dtype=torch.float32, device=dev)
     best_depth = depths[0].expand(H, W).clone()
     Dc = depth_chunk(opts, S, H, W, D, dev)
@@ -375,12 +406,15 @@ def plane_sweep(
         best_cost = torch.where(upd, ci, best_cost)
         best_photo = torch.where(upd, torch.gather(p, 0, i)[0], best_photo)
         best_depth = torch.where(upd, d[i[0]], best_depth)
-    best_cost = best_photo  # the photometric cost of the chosen depth
+    return best_depth, best_photo  # the photometric cost of the chosen depth
 
-    # normals from depth gradients: z(x, y) plane fit in camera coords
+
+def _normals(best_depth: Tensor, K_ref: Tensor) -> Tensor:
+    """Unit normals [H, W, 3] toward the camera from the depth map's
+    central differences (a z(x, y) plane fit in camera coordinates)."""
     fx = K_ref[0, 0]
     fy = K_ref[1, 1]
-    half = _const(0.5, ref)
+    half = _const(0.5, best_depth)
     dzdx = (torch.roll(best_depth, -1, 1) - torch.roll(best_depth, 1, 1)) * half
     dzdy = (torch.roll(best_depth, -1, 0) - torch.roll(best_depth, 1, 0)) * half
     zc = torch.clamp(best_depth, min=1e-6)
@@ -388,8 +422,57 @@ def plane_sweep(
     n1 = -dzdy * fy / zc
     n2 = torch.ones_like(best_depth)
     nrm = torch.clamp(torch.sqrt(n0 * n0 + n1 * n1 + n2 * n2), min=1e-12)
-    n = -torch.stack([n0 / nrm, n1 / nrm, n2 / nrm], -1)  # toward the camera (-z)
-    return best_depth, best_cost, n
+    return -torch.stack([n0 / nrm, n1 / nrm, n2 / nrm], -1)  # toward the camera (-z)
+
+
+def plane_sweep(
+    ref: Tensor,  # [H,W] grayscale
+    srcs: Tensor,  # [S,Hs,Ws]
+    K_ref: Tensor,  # [3,3]
+    K_srcs: Tensor,  # [S,3,3]
+    R_rel: Tensor,  # [S,3,3] ref-cam -> src-cam rotation
+    t_rel: Tensor,  # [S,3]
+    depths: Tensor,  # [D] hypothesis bank (e.g. inverse-depth spaced)
+    opts: StereoOptions = StereoOptions(),
+    src_depths: Tensor | None = None,  # [S,Hs,Ws] prior source depth maps
+    use_geom: bool = False,
+):
+    """Returns (depth_map [H,W], cost_map [H,W], normal_map [H,W,3]) on the
+    inputs' device. CUDA tensors launch the hand kernel once
+    (`stereo_kernel.plane_sweep_cuda`, which raises on what it does not
+    take); CPU tensors take the plain route (`plane_sweep_plain`).
+
+    Normals are in the reference camera frame, unit, pointing toward the
+    camera (negative z), from central depth differences that wrap around
+    at the border (`torch.roll`, as the JAX package's `jnp.roll`).
+
+    With use_geom=True and src_depths given, adds the geometric-consistency
+    term (patch_match.h:101-111): the forward-backward reprojection error of
+    each depth hypothesis against the source view's own depth map, capped at
+    geom_max_cost px, weighted by geom_regularizer.
+    """
+    sweep = _sweep_kernel if ref.device.type == "cuda" else _sweep_plain
+    best_depth, best_cost = sweep(ref, srcs, K_ref, K_srcs, R_rel, t_rel, depths, opts, src_depths, use_geom)
+    return best_depth, best_cost, _normals(best_depth, K_ref)
+
+
+def plane_sweep_plain(
+    ref: Tensor,
+    srcs: Tensor,
+    K_ref: Tensor,
+    K_srcs: Tensor,
+    R_rel: Tensor,
+    t_rel: Tensor,
+    depths: Tensor,
+    opts: StereoOptions = StereoOptions(),
+    src_depths: Tensor | None = None,
+    use_geom: bool = False,
+):
+    """`plane_sweep` by the plain route on any device: CPU tensors' route,
+    and on the card the kernel's yardstick in tests and chip_smoke.py."""
+    best_depth, best_cost = _sweep_plain(ref, srcs, K_ref, K_srcs, R_rel, t_rel, depths, opts, src_depths,
+                                         use_geom)
+    return best_depth, best_cost, _normals(best_depth, K_ref)
 
 
 def consistency_mask(

@@ -632,6 +632,19 @@ def test_dense_commands_never_import_jax(dense_run):
         assert len(faces) > 0, mesh
 
 
+@pytest.mark.parametrize("radius", [0, 1, 32, 33])
+def test_dense_window_radius_takes_colmaps_range(radius):
+    """--PatchMatchStereo.window_radius takes 1 to 32, as COLMAP's
+    PatchMatchOptions do (the sweep's kernel takes each of them); outside
+    that it raises before any view is read."""
+    argv = ["--PatchMatchStereo.window_radius", str(radius)]
+    if 1 <= radius <= 32:
+        assert cli._dense_options(argv)[0].window_radius == radius
+    else:
+        with pytest.raises(ValueError, match="COLMAP takes 1 to 32"):
+            cli._dense_options(argv)
+
+
 def test_dense_commands_take_colmap_widths(tmp_path, capsys):
     """patch_match_stereo and stereo_fusion take COLMAP's --PatchMatchStereo.*
     and --StereoFusion.* flags for DenseOptions' fields, and those whose

@@ -364,8 +364,13 @@ def _sweep_inputs(rng, H=240, W=320, S=4, D=64):
 
 
 def test_plane_sweep_on_gpu_equals_cpu_and_repeats(cuda_device):
-    """Both passes of the sweep: the card computes the CPU's floats (the
-    same IEEE operations in the same order), and twice the same bytes."""
+    """Both passes of the sweep: the card's (the hand kernel) against the
+    CPU's (the plain route), and twice the same bytes on the card. The
+    kernel takes the plain route's operations in the same order, each
+    rounded as IEEE rounds it; the CPU's `torch.sqrt` is vectorised and not
+    correctly rounded (one ulp off on under 1% of inputs), so a cost may
+    differ by an ulp and a depth whose two best planes are that close may
+    flip: hence the share of identical depths and the cost tolerance."""
     from colmap_pcd_tpu_torch.ops import stereo
 
     inputs = _sweep_inputs(np.random.default_rng(0))
@@ -382,6 +387,98 @@ def test_plane_sweep_on_gpu_equals_cpu_and_repeats(cuda_device):
         same = card[k] == cpu[k]
         assert same.mean() >= 0.995, same.mean()
         assert np.abs(card[k + 1] - cpu[k + 1])[same].max() <= 1e-4
+
+
+def _kernel_and_plain(inputs, opts, geom, dev):
+    """(kernel's maps, plain route's maps) of one view-pass on the card;
+    the kernel launched twice (the second's bytes must equal the first's)
+    and counted once a launch. The kernel rounds each product and sum as
+    the plain route's launches do, so on the card its depth and cost maps
+    equal the plain route's to the bit."""
+    from colmap_pcd_tpu_torch.ops import stereo, stereo_kernel
+
+    t = [torch.as_tensor(a, device=dev) for a in inputs]
+    kw = dict(src_depths=t[7], use_geom=True) if geom else {}
+    before = stereo_kernel.plane_sweep_cuda.launches
+    kernel = stereo.plane_sweep(*t[:7], opts, **kw)
+    again = stereo.plane_sweep(*t[:7], opts, **kw)
+    torch.cuda.synchronize()
+    assert stereo_kernel.plane_sweep_cuda.launches == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(kernel, again))
+    plain = stereo.plane_sweep_plain(*t[:7], opts, **kw)
+    for name, a, b in zip(("depth", "cost"), kernel, plain):
+        assert torch.equal(a, b), f"{name}: {int((a != b).sum())} pixels differ from the plain route's"
+    return [a.cpu().numpy() for a in kernel], [a.cpu().numpy() for a in plain]
+
+
+@pytest.mark.parametrize("S", [1, 2, 4, 5])
+@pytest.mark.parametrize("geom", [False, True], ids=["photometric", "geometric"])
+@pytest.mark.parametrize("bilateral", [True, False], ids=["bilateral", "box"])
+@pytest.mark.parametrize("r", [3, 5, 9])
+def test_plane_sweep_kernel_matches_plain_route(cuda_device, r, bilateral, geom, S):
+    """The kernel against the plain route on the card, on a ragged 61x83
+    view at 13 depths: the same maps to the bit, and so the bars of the
+    card-against-CPU test; two launches the same bytes, one launch a
+    view-pass. Radius 9 takes the instantiation that reads the radius at
+    launch and the weights from global memory."""
+    from colmap_pcd_tpu_torch.ops import stereo
+
+    inputs = _sweep_inputs(np.random.default_rng(10 * r + S), H=61, W=83, S=S, D=13)
+    opts = stereo.StereoOptions(window_radius=r, sigma_color=0.2 if bilateral else -1.0)
+    kernel, plain = _kernel_and_plain(inputs, opts, geom, cuda_device)
+    same = kernel[0] == plain[0]
+    assert same.mean() >= 0.995, same.mean()
+    assert np.abs(kernel[1] - plain[1])[same].max() <= 1e-4
+
+
+@pytest.mark.parametrize("flat", [False, True], ids=["textured", "flat"])
+def test_plane_sweep_kernel_ties_take_the_first_depth(cuda_device, flat):
+    """With no baseline every plane maps the sources alike, so every depth
+    costs the same to the last bit, flat view or textured: the kernel keeps
+    depths[0] everywhere, as the plain route's scan does."""
+    from colmap_pcd_tpu_torch.ops import stereo
+
+    ref, srcs, K, Ks, R, t, depths, prior = _sweep_inputs(np.random.default_rng(3), H=61, W=83, S=4, D=13)
+    if flat:
+        ref, srcs = np.zeros_like(ref), np.zeros_like(srcs)
+    inputs = (ref, srcs, K, Ks, R, np.zeros_like(t), depths, prior)
+    kernel, plain = _kernel_and_plain(inputs, stereo.StereoOptions(window_radius=3), False, cuda_device)
+    assert np.all(kernel[0] == depths[0]) and np.all(plain[0] == depths[0])
+    assert np.abs(kernel[1] - plain[1]).max() <= 1e-4
+
+
+def test_plane_sweep_kernel_two_identical_sources(cuda_device):
+    """Two identical sources tie at every depth: the best two are the pair,
+    and their mean equals one source's cost to the bit; the sweep equals
+    the one-source sweep, and the plain route's stable sort."""
+    from colmap_pcd_tpu_torch.ops import stereo
+
+    ref, srcs, K, Ks, R, t, depths, prior = _sweep_inputs(np.random.default_rng(4), H=61, W=83, S=1, D=13)
+    twice = (ref, np.concatenate([srcs, srcs]), K, np.concatenate([Ks, Ks]), np.concatenate([R, R]),
+             np.concatenate([t, t]), depths, np.concatenate([prior, prior]))
+    opts = stereo.StereoOptions(window_radius=3)
+    for geom in (False, True):
+        kernel, plain = _kernel_and_plain(twice, opts, geom, cuda_device)
+        one, _ = _kernel_and_plain((ref, srcs, K, Ks, R, t, depths, prior), opts, geom, cuda_device)
+        for a, b in zip(kernel, one):
+            np.testing.assert_array_equal(a, b)
+        same = kernel[0] == plain[0]
+        assert same.mean() >= 0.995 and np.abs(kernel[1] - plain[1])[same].max() <= 1e-4
+
+
+def test_plane_sweep_kernel_refuses_what_it_does_not_take(cuda_device):
+    """A radius above the kernel's largest, and CPU tensors handed to the
+    kernel's wrapper, raise with a message; plane_sweep never falls back."""
+    from colmap_pcd_tpu_torch.ops import stereo, stereo_kernel
+
+    t = [torch.as_tensor(a, device=cuda_device) for a in _sweep_inputs(np.random.default_rng(5), H=20, W=30, S=2, D=3)]
+    lib = stereo_kernel.build()
+    with pytest.raises(ValueError, match="window radius"):
+        stereo.plane_sweep(*t[:7], stereo.StereoOptions(window_radius=lib.max_radius + 1))
+    w, *terms = stereo._bilateral_ref_terms(t[0], stereo.StereoOptions())
+    Hm = stereo._plane_homography(stereo._inv3(t[2]), t[3], t[4], t[5], t[6]).contiguous()
+    with pytest.raises(ValueError, match="the reference on"):
+        stereo_kernel.plane_sweep_cuda(t[0], t[1].cpu(), Hm, t[6], 3, w, tuple(terms), 2, 2.001)
 
 
 def test_poisson_on_gpu_repeats_and_matches_cpu(cuda_device):
