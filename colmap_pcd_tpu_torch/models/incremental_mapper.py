@@ -124,19 +124,6 @@ class LocalBAReport:
     num_filtered_observations: int = 0
 
 
-def _bucket4(n: int, minimum: int = 16) -> int:
-    """Power-of-FOUR bucket (the JAX package's shape policy, kept so both
-    implementations build identical problems)."""
-    b = max(minimum, n)
-    e = math.ceil(math.log(b / minimum, 4))
-    return minimum * (4 ** int(e))
-
-
-def _bucket(n: int, minimum: int = 16) -> int:
-    """Round up to a power of two (the JAX package's shape policy)."""
-    return max(minimum, 1 << int(math.ceil(math.log2(max(n, 1)))))
-
-
 class IncrementalMapper:
     def __init__(
         self,
@@ -421,26 +408,21 @@ class IncrementalMapper:
 
     def _pnp(self, uv: np.ndarray, X: np.ndarray, seed: int, thr: float, opts: MapperOptions):
         """RANSAC + Cauchy-GN pose polish on the device for n 2D-3D matches
-        (normalized coords), padded to the JAX package's bucket. Returns
-        (num_inliers, q, t, inlier_mask [n]) on the host."""
-        n = uv.shape[0]
-        npad = _bucket(n, 2048)
+        (normalized coords). Returns (num_inliers, q, t, inlier_mask [n]) on
+        the host."""
         dev = self.device
-        uvp = torch.zeros((npad, 2), dtype=torch.float32, device=dev)
-        Xp = torch.zeros((npad, 3), dtype=torch.float32, device=dev)
-        vp = torch.zeros(npad, dtype=torch.float32, device=dev)
-        uvp[:n] = torch.as_tensor(uv, dtype=torch.float32)
-        Xp[:n] = torch.as_tensor(X, dtype=torch.float32)
-        vp[:n] = 1.0
         gen = torch.Generator(device=dev).manual_seed(seed)
         res = ransac_ops.ransac_pnp(
-            uvp, Xp, vp, gen,
+            torch.as_tensor(uv, dtype=torch.float32, device=dev),
+            torch.as_tensor(X, dtype=torch.float32, device=dev),
+            torch.ones(uv.shape[0], dtype=torch.float32, device=dev),
+            gen,
             ransac_ops.RansacOptions(num_hypotheses=opts.num_ransac_hypotheses),
             refine_iters=10, max_error=thr,
         )
         # one batched device->host fetch
         n_in, q, t, mask = (
-            x.cpu().numpy() for x in (res.num_inliers, res.q, res.t, res.inlier_mask[:n])
+            x.cpu().numpy() for x in (res.num_inliers, res.q, res.t, res.inlier_mask)
         )
         return int(n_in), q, t, mask
 
@@ -867,17 +849,15 @@ class IncrementalMapper:
         pids = img.point3D_ids[fidx]
         pts = np.stack([self.rec.points3D[int(p)].xyz for p in pids]).astype(np.float32)
         uv = img.xys[fidx].astype(np.float32)
-        P = _bucket(fidx.size, 2048)
         prob = ba_ops.make_problem(
             np.asarray(img.qvec, np.float32)[None],
             np.asarray(img.tvec, np.float32)[None],
             cam.padded_params(),
-            np.concatenate([pts, np.zeros((P - fidx.size, 3), np.float32)]),
-            np.zeros(P, np.int32),
-            np.arange(P, dtype=np.int32),
-            np.concatenate([uv, np.zeros((P - fidx.size, 2), np.float32)]),
-            obs_valid=np.concatenate([np.ones(fidx.size, np.float32), np.zeros(P - fidx.size, np.float32)]),
-            point_fixed=np.ones(P, np.float32),
+            pts,
+            np.zeros(fidx.size, np.int32),
+            np.arange(fidx.size, dtype=np.int32),
+            uv,
+            point_fixed=np.ones(fidx.size, np.float32),
             track_len=1,
             device=self.device,
         )
@@ -1170,8 +1150,9 @@ class IncrementalMapper:
         refine_extra: bool = True,
         variable_obs_only: bool = False,
     ):
-        """Build the padded BAProblem and run the device solve, then write
-        results back into the reconstruction.
+        """Build the BAProblem at the data's size (every image, point and
+        observation in it, the longest track as its table width) and run
+        the device solve, then write results back into the reconstruction.
 
         variable_obs_only=True restricts even bundle images to observations of
         variable points — the spherical global BA semantics, where
@@ -1237,24 +1218,13 @@ class IncrementalMapper:
             img_slot = {iid: k for k, iid in enumerate(img_ids)}
             uniq_pids, obs_pt_slots = np.unique(obs_pid_arr, return_inverse=True)
             pids_in_problem = {int(pid): s for s, pid in enumerate(uniq_pids)}
-            n_obs = obs_pid_arr.shape[0]
-            if n_obs == 0 or uniq_pids.size == 0:
-                return
 
-            # the JAX package's bucket shape policy (4x steps for cameras and
-            # points, 2x for observations and track length), kept so both
-            # implementations solve identical padded problems
-            C = _bucket4(len(img_ids), 16)
-            P = _bucket4(uniq_pids.size, 2048)
-            N = _bucket(n_obs, 8192)
-            # T keeps 2x steps: the Schur pair term scales with T^2 per point, so
-            # a coarser ladder would triple real solve cost, not just padding
-            T = _bucket(int(np.bincount(obs_pt_slots).max()), 16)
+            C = len(img_ids)
+            T = int(np.bincount(obs_pt_slots).max())
 
             cam_q = np.zeros((C, 4), np.float32)
-            cam_q[:, 0] = 1.0
             cam_t = np.zeros((C, 3), np.float32)
-            pose_fixed = np.ones(C, np.float32)  # padding slots frozen
+            pose_fixed = np.zeros(C, np.float32)
             tvf = np.zeros((C, 3), np.float32)
             for iid, k in img_slot.items():
                 img = rec.images[iid]
@@ -1264,16 +1234,15 @@ class IncrementalMapper:
                 for comp in tvec_fixed.get(iid, []):
                     tvf[k, comp] = 1.0
 
-            points = np.zeros((P, 3), np.float32)
-            point_fixed = np.ones(P, np.float32)
-            lidar_plane = np.zeros((P, 4), np.float32)
-            lidar_w = np.zeros(P, np.float32)
             pts3D = rec.points3D
-            points[: uniq_pids.size] = np.asarray([pts3D[int(p)].xyz for p in uniq_pids])
+            points = np.asarray([pts3D[int(p)].xyz for p in uniq_pids], np.float32)
+            point_fixed = np.ones(uniq_pids.size, np.float32)
+            lidar_plane = np.zeros((uniq_pids.size, 4), np.float32)
+            lidar_w = np.zeros(uniq_pids.size, np.float32)
             if var_arr.size:
                 pos = np.searchsorted(var_arr, uniq_pids)
                 isvar = (pos < var_arr.size) & (var_arr[np.minimum(pos, var_arr.size - 1)] == uniq_pids)
-                point_fixed[: uniq_pids.size] = np.where(isvar, 0.0, 1.0)
+                point_fixed = np.where(isvar, 0.0, 1.0).astype(np.float32)
             w_of_type = {
                 LIDAR_PROJ: opts.proj_lidar_constraint_weight,
                 LIDAR_ICP: opts.icp_lidar_constraint_weight,
@@ -1295,42 +1264,31 @@ class IncrementalMapper:
             cam_model = np.asarray(
                 [model_ids.index(rec.cameras[c].model_id) for c in uniq_cams], np.int32
             )
-            cam_k = np.zeros(C, np.int32)
-            cam_k[: len(img_ids)] = [cam_slot_of[c] for c in cam_ids]
+            cam_k = np.asarray([cam_slot_of[c] for c in cam_ids], np.int32)
 
-            obs_cam = np.zeros(N, np.int32)
-            obs_pt = np.zeros(N, np.int32)
-            obs_uv = np.zeros((N, 2), np.float32)
-            obs_valid = np.zeros(N, np.float32)
             uniq_iids, inv_iid = np.unique(obs_iid, return_inverse=True)
             slot_lookup = np.asarray([img_slot[int(i)] for i in uniq_iids], np.int32)
-            obs_cam[:n_obs] = slot_lookup[inv_iid]
-            obs_pt[:n_obs] = obs_pt_slots
-            obs_uv[:n_obs] = obs_uv_all
-            obs_valid[:n_obs] = 1.0
+            obs_cam = slot_lookup[inv_iid]
 
             # compact the reduced camera system to the VARIABLE cameras: fixed
             # poses contribute nothing (their jacobians are zeroed) and map to
             # block 0, so the Schur system scales with the in-sphere/bundle
             # variable count — not the total registered-camera count (the point
             # of spherical windowing, sfm/incremental_mapper.cc:1349-1388)
-            cam_blk = np.zeros(C, np.int32)
-            n_var = 0
-            for k in range(len(img_ids)):
-                if pose_fixed[k] == 0.0:
-                    cam_blk[k] = n_var
-                    n_var += 1
-            num_pose_blocks = int(_bucket4(max(n_var, 1), 16))
-            if num_pose_blocks >= C:
-                num_pose_blocks = 0  # no compaction win; keep identity layout
-                cam_blk = np.arange(C, dtype=np.int32)
+            var = pose_fixed == 0.0
+            n_var = int(var.sum())
+            if 0 < n_var < C:
+                num_pose_blocks = n_var
+                cam_blk = np.where(var, np.cumsum(var) - 1, 0)
+            else:
+                num_pose_blocks = 0  # identity layout
+                cam_blk = np.arange(C)
 
             # numpy fields; uploaded whole here, or per shard by dist_ba
             prob = ba_ops.host_problem(
                 cam_q, cam_t, intr, points,
-                obs_cam, obs_pt, obs_uv,
-                cam_k=cam_k, cam_model=cam_model, cam_blk=cam_blk,
-                obs_valid=obs_valid, track_len=T,
+                obs_cam, obs_pt_slots, obs_uv_all,
+                cam_k=cam_k, cam_model=cam_model, cam_blk=cam_blk, track_len=T,
                 lidar_plane=lidar_plane, lidar_w=lidar_w,
                 pose_fixed=pose_fixed, tvec_fixed=tvf, point_fixed=point_fixed,
             )
@@ -1350,12 +1308,7 @@ class IncrementalMapper:
                 # chunk sizing: ~2^24 (point, track slot, pose block) entries
                 # per Schur reduction chunk (~64 MB) — a handful of large
                 # chunks instead of hundreds of tiny ones
-                point_chunk=int(np.clip(
-                    (1 << 24) // max(T * max(
-                        num_pose_blocks if num_pose_blocks > 0 else C, 1
-                    ), 1),
-                    32, 4096,
-                )),
+                point_chunk=int(np.clip((1 << 24) // (T * (num_pose_blocks or C)), 32, 4096)),
             )
         with PHASES.phase("ba_device"):
             if self.dist_mesh is not None:
@@ -1389,7 +1342,7 @@ class IncrementalMapper:
                 cam.params = new_params[k, :n].copy()
                 rec.bump_camera_params(cid)
         p_out = np.asarray(p_out, np.float64)
-        free = np.nonzero(point_fixed[: uniq_pids.size] == 0.0)[0]
+        free = np.nonzero(point_fixed == 0.0)[0]
         for s in free:
             pid = int(uniq_pids[s])
             if pid in pts3D:

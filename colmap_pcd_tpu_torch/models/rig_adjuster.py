@@ -3,7 +3,7 @@
 Carried from colmap_pcd_tpu/models/rig_adjuster.py; its device call is the
 port's ops/rig_ba.solve on `device`. Re-design of RigBundleAdjuster::Solve/
 SetUp/TearDown (src/optim/bundle_adjustment.cc:700-940): compute
-per-snapshot rig poses, assemble one padded RigBAProblem over all registered
+per-snapshot rig poses, assemble one RigBAProblem over all registered
 images (rig images share snapshot pose slots and per-rig-camera relative
 pose slots; non-rig images get private snapshot slots with a frozen identity
 relative pose), solve, and write composed image poses + refined relative
@@ -19,7 +19,6 @@ import numpy as np
 from .. import device as device_mod
 from ..ops import np_geom, rig_ba
 from .camera_rig import CameraRig
-from .incremental_mapper import _bucket
 from .reconstruction import INVALID_POINT3D, Reconstruction
 
 
@@ -133,11 +132,8 @@ class RigBundleAdjuster:
         # drop observations whose composed-pose reprojection error explodes
         # (rig_options.max_reproj_error, bundle_adjustment.cc:795-807): the
         # concatenated rig+rel pose can disagree with the image's own pose.
-        rq = np.stack(rig_q)[obs_rig]
-        rt = np.stack(rig_t)[obs_rig]
-        sq = np.stack(rel_q)[obs_rel]
-        st = np.stack(rel_t)[obs_rel]
-        cq, ct = np_geom.se3_compose(sq, st, rq, rt)
+        rig_q, rig_t, rel_q, rel_t = (np.stack(a) for a in (rig_q, rig_t, rel_q, rel_t))
+        cq, ct = np_geom.se3_compose(rel_q[obs_rel], rel_t[obs_rel], rig_q[obs_rig], rig_t[obs_rig])
         Xc = np_geom.se3_apply(cq, ct, points[obs_pt])  # [M,3]
         z = Xc[:, 2]
         uvn = Xc[:, :2] / np.where(np.abs(z[:, None]) < 1e-9, 1e-9, z[:, None])
@@ -151,46 +147,13 @@ class RigBundleAdjuster:
         err = np.where(z > 0, err, np.inf)
         valid = ((np.isfinite(err)) & (err <= opts.max_reproj_error)).astype(np.float32)
 
-        # ---- padding ---------------------------------------------------------
-        S = _bucket(len(rig_q), 8)
-        R = _bucket(len(rel_q), 4)
-        P = _bucket(len(uniq_pids), 256)
-        N = _bucket(len(pid_arr), 1024)
-
-        rig_qp = np.tile(np.asarray([1.0, 0, 0, 0], np.float32), (S, 1))
-        rig_tp = np.zeros((S, 3), np.float32)
-        rig_qp[: len(rig_q)] = np.stack(rig_q)
-        rig_tp[: len(rig_t)] = np.stack(rig_t)
-        rig_fixed = np.ones(S, np.float32)
-        rig_fixed[: len(rig_q)] = 0.0
-        rel_qp = np.tile(np.asarray([1.0, 0, 0, 0], np.float32), (R, 1))
-        rel_tp = np.zeros((R, 3), np.float32)
-        rel_qp[: len(rel_q)] = np.stack(rel_q)
-        rel_tp[: len(rel_t)] = np.stack(rel_t)
-        rel_fx = np.ones(R, np.float32)
-        rel_fx[: len(rel_fixed)] = rel_fixed
-
-        pts_p = np.zeros((P, 3), np.float32)
-        pts_p[: len(uniq_pids)] = points
-        pt_fixed = np.ones(P, np.float32)
-        pt_fixed[: len(uniq_pids)] = 0.0
-
-        def pad(a, n, fill=0):
-            out = np.full((n,) + a.shape[1:], fill, a.dtype)
-            out[: a.shape[0]] = a
-            return out
-
-        track_len = _bucket(int(np.bincount(obs_pt).max()) * 1, 16)
         prob = rig_ba.make_problem(
-            rig_qp, rig_tp, rel_qp, rel_tp, intr, pts_p,
-            pad(obs_rig, N), pad(obs_rel, N), pad(obs_k, N),
-            pad(obs_pt.astype(np.int32), N), pad(obs_uv, N),
+            rig_q, rig_t, rel_q, rel_t, intr, points,
+            obs_rig, obs_rel, obs_k, obs_pt.astype(np.int32), obs_uv,
             cam_model=cam_model,
-            obs_valid=pad(valid, N),
-            track_len=track_len,
-            rig_fixed=rig_fixed,
-            rel_fixed=rel_fx,
-            point_fixed=pt_fixed,
+            obs_valid=valid,
+            track_len=int(np.bincount(obs_pt).max()),
+            rel_fixed=rel_fixed,
             device=self.device,
         )
         cfg = rig_ba.RigBAConfig(

@@ -38,13 +38,13 @@ def shard_problem(problem: ba_ops.BAProblem, n_shards: int, mesh: Mesh | None = 
     Observations are re-packed per shard so that every point's track is
     local to its owner (the "owner computes" rule of the spherical-BA
     windowing), into a per-shard capacity of the next power of two above
-    the fullest shard. The host builder already padded the points."""
+    the fullest shard. The point slots are padded with frozen points up to
+    the next multiple of n, so that every shard holds an equal block."""
     if mesh is not None and mesh.size != n_shards:
         raise ValueError(f"{n_shards} shards asked for on a mesh of {mesh.size}")
     Pn = problem.points.shape[0]
-    if Pn % n_shards:
-        raise ValueError(f"point slots {Pn} not divisible by {n_shards}")
-    blk = Pn // n_shards
+    blk = -(-Pn // n_shards)
+    pad = blk * n_shards - Pn
 
     obs_pt = _host(problem.obs_pt)
     obs_cam = _host(problem.obs_cam)
@@ -84,8 +84,9 @@ def shard_problem(problem: ba_ops.BAProblem, n_shards: int, mesh: Mesh | None = 
         rank = np.arange(ps.size) - np.repeat(starts, cnts)
         s_pt_obs[s, ps, rank] = order
 
-    def split(x):
+    def split(x, fill=0.0):
         x = _host(x)
+        x = np.concatenate([x, np.full((pad,) + x.shape[1:], fill, x.dtype)])
         return x.reshape((n_shards, blk) + x.shape[1:])
 
     # the fields sharded by point/observation; the rest are replicated
@@ -93,7 +94,7 @@ def shard_problem(problem: ba_ops.BAProblem, n_shards: int, mesh: Mesh | None = 
         "points": split(problem.points), "obs_cam": s_obs_cam, "obs_pt": s_obs_pt,
         "obs_uv": s_obs_uv, "obs_valid": s_obs_valid, "pt_obs": s_pt_obs,
         "lidar_plane": split(problem.lidar_plane), "lidar_w": split(problem.lidar_w),
-        "point_fixed": split(problem.point_fixed),
+        "point_fixed": split(problem.point_fixed, 1.0),
     }
     devices = mesh.devices if mesh is not None else (torch.as_tensor(problem.points).device,) * n_shards
     shards = []
@@ -111,9 +112,10 @@ def shard_problem(problem: ba_ops.BAProblem, n_shards: int, mesh: Mesh | None = 
 def solve_distributed(problem: ba_ops.BAProblem, cfg: ba_ops.BAConfig, mesh: Mesh) -> ba_ops.BAResult:
     """Solve a BAProblem (tensors, or numpy arrays to be sharded before any
     upload) across all devices of the mesh; the result (points stitched back
-    to the flat layout) lies on the mesh's root device. The PHASES span
-    `ba_shard` times the sharding and upload."""
+    to the problem's own layout, the shards' padding cut) lies on the mesh's
+    root device. The PHASES span `ba_shard` times the sharding and upload."""
     with PHASES.phase("ba_shard"):
         shards = shard_problem(problem, mesh.size, mesh)
     q, t, k, Xs, init_cost, cost, it, syncs = ba_ops.solve_shards(shards, cfg, mesh)
-    return ba_ops.BAResult(q, t, k, mesh.gather(Xs), init_cost, cost, it, syncs)
+    X = mesh.gather(Xs)[: problem.points.shape[0]]
+    return ba_ops.BAResult(q, t, k, X, init_cost, cost, it, syncs)

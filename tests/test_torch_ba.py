@@ -147,6 +147,47 @@ def test_pcg_tier_raises():
     assert pcg.host_syncs > pcg.iterations
 
 
+@pytest.mark.parametrize("camera_solver", ["dense", "pcg"])
+def test_padding_slots_are_inert(camera_solver):
+    """The mapper builds its problems at the data's size. The same problem
+    padded as the mapper once padded it (16 pose slots, 2048 point slots,
+    8192 observations, tracks of 16; the extra poses and points frozen, the
+    extra observations invalid, the identity pose layout) solves to the
+    same poses, points and final cost at test_solve_parity's bars, on
+    either camera tier."""
+    f = {k: np.asarray(v) for k, v in _problem(PINHOLE, seed=1)._asdict().items()}
+    C, P, N = len(f["cam_q"]), len(f["points"]), len(f["obs_cam"])
+    var = f["pose_fixed"] == 0
+    prob = ba_t.make_problem(
+        f["cam_q"], f["cam_t"], f["intr"], f["points"], f["obs_cam"], f["obs_pt"], f["obs_uv"],
+        cam_blk=np.where(var, np.cumsum(var) - 1, 0), track_len=f["pt_obs"].shape[1],
+        lidar_plane=f["lidar_plane"], lidar_w=f["lidar_w"], pose_fixed=f["pose_fixed"],
+        point_fixed=f["point_fixed"], device="cpu",
+    )
+
+    def pad(a, n, fill=0.0):
+        return np.concatenate([a, np.full((n - len(a),) + a.shape[1:], fill, a.dtype)])
+
+    ident = np.tile(np.float32([1, 0, 0, 0]), (16 - C, 1))
+    padded = ba_t.make_problem(
+        np.concatenate([f["cam_q"], ident]), pad(f["cam_t"], 16), f["intr"], pad(f["points"], 2048),
+        pad(f["obs_cam"], 8192, 0), pad(f["obs_pt"], 8192, 0), pad(f["obs_uv"], 8192),
+        obs_valid=pad(np.ones(N, np.float32), 8192), track_len=16,
+        lidar_plane=pad(f["lidar_plane"], 2048), lidar_w=pad(f["lidar_w"], 2048),
+        pose_fixed=pad(f["pose_fixed"], 16, 1.0), point_fixed=pad(f["point_fixed"], 2048, 1.0),
+        device="cpu",
+    )
+    cfg = dict(model_id=PINHOLE, max_iterations=30, camera_solver=camera_solver)
+    r = ba_t.solve(prob, ba_t.BAConfig(num_pose_blocks=int(var.sum()), **cfg))
+    rp = ba_t.solve(padded, ba_t.BAConfig(**cfg))
+    assert float(r.final_cost) < 0.5 * float(r.initial_cost)
+    np.testing.assert_allclose(float(r.initial_cost), float(rp.initial_cost), rtol=1e-5)
+    np.testing.assert_allclose(float(r.final_cost), float(rp.final_cost), rtol=1e-3)
+    np.testing.assert_allclose(r.cam_q.numpy(), rp.cam_q[:C].numpy(), atol=1e-4)
+    np.testing.assert_allclose(r.cam_t.numpy(), rp.cam_t[:C].numpy(), atol=1e-4)
+    np.testing.assert_allclose(r.points.numpy(), rp.points[:P].numpy(), rtol=1e-3)
+
+
 def test_reprojection_errors_parity():
     pj = _problem(OPENCV, seed=3)
     pt = _port(pj)

@@ -588,3 +588,37 @@ def test_match_pool_sharded_on_card_goes_through_the_float_kernel(cuda_device):
     np.testing.assert_array_equal(ok_m, ok_l)
     np.testing.assert_array_equal(idx_m, idx_l)
     assert ok_m.shape[0] == len(pairs) and ok_m.any(axis=1).all()
+
+
+@pytest.mark.parametrize("n", [37, 500, 1500])
+def test_ransac_pnp_on_card_ignores_padding(cuda_device, n):
+    """The mapper hands ransac_pnp its n matches unpadded. On the card, with
+    one seed, the draws and the inlier mask equal those over the same
+    matches zero-padded to 2048 rows with valid = 0, and the poses agree
+    within 1e-5 (tests/test_torch_geometry.py holds the same on the CPU)."""
+    from colmap_pcd_tpu_torch.ops import ransac
+
+    rng = np.random.default_rng(n)
+    Xc = np.stack([rng.uniform(-4, 4, n), rng.uniform(-3, 3, n), rng.uniform(4, 12, n)], -1)
+    uv = Xc[:, :2] / Xc[:, 2:] + rng.normal(0, 5e-4, (n, 2))
+    bad = rng.random(n) < 0.3
+    uv[bad] = rng.uniform(-0.5, 0.5, (bad.sum(), 2))
+    X = Xc - np.asarray([0.3, -0.2, 0.5])  # world = camera frame shifted
+    pad = 2048 - n
+    rows = [
+        (uv, X, np.ones(n)),
+        (np.pad(uv, ((0, pad), (0, 0))), np.pad(X, ((0, pad), (0, 0))), np.pad(np.ones(n), (0, pad))),
+    ]
+    rows = [[torch.as_tensor(a, dtype=torch.float32, device=cuda_device) for a in r] for r in rows]
+
+    def gen():
+        return torch.Generator(device=cuda_device).manual_seed(3)
+
+    draws = [ransac._draw_samples(gen(), v, 256, 3) for _, _, v in rows]
+    assert torch.equal(draws[0], draws[1])
+    opts = ransac.RansacOptions(num_hypotheses=1024)
+    r, rp = (ransac.ransac_pnp(*row, gen(), opts, refine_iters=10, max_error=4.0 / 500.0) for row in rows)
+    assert torch.equal(r.inlier_mask, rp.inlier_mask[:n]) and not bool(rp.inlier_mask[n:].any())
+    assert int(r.num_inliers) == int(rp.num_inliers) >= 0.6 * n
+    np.testing.assert_allclose(r.q.cpu().numpy(), rp.q.cpu().numpy(), atol=1e-5)
+    np.testing.assert_allclose(r.t.cpu().numpy(), rp.t.cpu().numpy(), atol=1e-5)

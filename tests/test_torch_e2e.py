@@ -11,6 +11,7 @@ from colmap_pcd_tpu.models import controllers as controllers_j
 from colmap_pcd_tpu.models import incremental_mapper as mapper_j
 from colmap_pcd_tpu_torch.models import controllers as controllers_t
 from colmap_pcd_tpu_torch.models import incremental_mapper as mapper_t
+from colmap_pcd_tpu_torch.ops import ba as ba_t
 
 torch.set_num_threads(1)  # tier-1 runs several workers on few cores
 
@@ -72,3 +73,30 @@ def test_scoped_vs_full_global_refinement_equivalent_accuracy():
     assert n_s == n_f, results
     assert ate_s < 0.10 and ate_f < 0.10, results
     assert abs(ate_s - ate_f) < 0.02, results
+
+
+def test_mapper_builds_problems_at_data_size(monkeypatch):
+    """Every problem that the mapper's bundle adjustments and pose polishes
+    hand to ops/ba.solve holds exactly its data: every pose and point slot
+    observed, every observation valid, the table as wide as the longest
+    track, and the variable poses compacted unless every pose is variable."""
+    seen = []
+    solve = ba_t.solve
+
+    def recording_solve(problem, cfg):
+        seen.append((problem, cfg))
+        return solve(problem, cfg)
+
+    monkeypatch.setattr(ba_t, "solve", recording_solve)
+    ctl, rec, _ = _map(synthetic_torch.make_world, controllers_t, mapper_t, 7, 8, 600)
+    assert ctl.reconstruct() and rec.num_reg_images >= 7
+    assert any(p.cam_q.shape[0] == 1 for p, _ in seen) and any(p.cam_q.shape[0] > 1 for p, _ in seen)
+    for p, cfg in seen:
+        C, P, N = p.cam_q.shape[0], p.points.shape[0], p.obs_cam.shape[0]
+        per_point = torch.bincount(p.obs_pt, minlength=P)
+        assert torch.bincount(p.obs_cam, minlength=C).min() > 0
+        assert per_point.min() > 0
+        assert bool((p.obs_valid == 1).all()) and N == int(per_point.sum())
+        assert p.pt_obs.shape == (P, int(per_point.max()))
+        n_var = int((p.pose_fixed == 0).sum())
+        assert cfg.num_pose_blocks == (n_var if 0 < n_var < C else 0)

@@ -263,6 +263,31 @@ def test_ransac_pnp_random_draw_recovers_pose():
     assert int(r.num_inliers) >= 0.65 * n
 
 
+@pytest.mark.parametrize("n", [37, 500, 1500])
+def test_ransac_pnp_ignores_padding(n):
+    """The mapper hands ransac_pnp its n matches unpadded. With one seed,
+    the draws, the inlier mask and the pose equal those over the same
+    matches zero-padded to 2048 rows with valid = 0 (the JAX package's
+    bucket)."""
+    rng = np.random.default_rng(7)
+    _, _, X, uv = _pnp_world(rng, n, noise=5e-4, outliers=0.3)
+    npad = 2048
+    uvp, Xp, vp = np.zeros((npad, 2), np.float32), np.zeros((npad, 3), np.float32), np.zeros(npad, np.float32)
+    uvp[:n], Xp[:n], vp[:n] = uv, X, 1.0
+    opts = ransac_t.RansacOptions(num_hypotheses=512)
+    draws = [ransac_t._draw_samples(torch.Generator().manual_seed(3), T(v), 128, 3) for v in (np.ones(n), vp)]
+    assert torch.equal(draws[0], draws[1])
+    r, rp = (
+        ransac_t.ransac_pnp(T(a), T(b), T(v), torch.Generator().manual_seed(3), opts,
+                            refine_iters=10, max_error=4.0 / 500.0)
+        for a, b, v in ((uv, X, np.ones(n, np.float32)), (uvp, Xp, vp))
+    )
+    assert torch.equal(r.inlier_mask, rp.inlier_mask[:n]) and not rp.inlier_mask[n:].any()
+    assert int(r.num_inliers) == int(rp.num_inliers)
+    np.testing.assert_allclose(r.q.numpy(), rp.q.numpy(), atol=1e-5)
+    np.testing.assert_allclose(r.t.numpy(), rp.t.numpy(), atol=1e-5)
+
+
 # ---------------------------------------------------------------------------
 # numerics policy and device resolution
 
