@@ -73,7 +73,7 @@ from colmap_pcd_tpu_torch.models.incremental_mapper import MapperOptions  # noqa
 from colmap_pcd_tpu_torch.models.lidar_map import LidarMap  # noqa: E402
 from colmap_pcd_tpu_torch.models.overlap import run_overlapped_frontend  # noqa: E402
 from colmap_pcd_tpu_torch.models.reconstruction import Camera, Image, Reconstruction  # noqa: E402
-from colmap_pcd_tpu_torch.ops import match_kernel, nn_kernel, np_geom, stereo_kernel  # noqa: E402
+from colmap_pcd_tpu_torch.ops import match_kernel, nn_kernel, np_geom, roots_kernel, stereo_kernel  # noqa: E402
 from colmap_pcd_tpu_torch.ops import pointcloud as pc_ops  # noqa: E402
 from colmap_pcd_tpu_torch.utils.config import SiftExtractionConfig, SiftMatchingConfig  # noqa: E402
 from colmap_pcd_tpu_torch.utils.logging_utils import PHASES  # noqa: E402
@@ -120,7 +120,8 @@ def nvidia_smi() -> str:
 def kernel_counters() -> dict:
     """The hand kernels' wrappers by name; each counts its launches."""
     return {"match_top2": match_kernel.match_top2, "match_top2_u8": match_kernel.match_top2_u8,
-            "nn_argmin": nn_kernel.nn_argmin, "plane_sweep_cuda": stereo_kernel.plane_sweep_cuda}
+            "nn_argmin": nn_kernel.nn_argmin, "plane_sweep_cuda": stereo_kernel.plane_sweep_cuda,
+            "real_roots_cuda": roots_kernel.real_roots_cuda}
 
 
 def counted(fn, counters: dict, device="cuda"):

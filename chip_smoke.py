@@ -11,7 +11,8 @@ Phases, each printing its numbers on its own line:
   1. environment: the card's name and power limit (nvidia-smi), torch/CUDA;
   2. build: the hand-written CUDA kernels K2 (nn_argmin), K1 for float
      descriptors (match_top2), K1 for uint8 descriptors on the integer
-     tensor cores (match_top2_u8) and the plane sweep (plane_sweep) from
+     tensor cores (match_top2_u8), the plane sweep (plane_sweep) and the
+     RANSAC banks' root finder (poly_roots) from
      the sources in colmap_pcd_tpu_torch/csrc, one nvcc each, started
      together, with their build seconds and ptxas reports; meanwhile the
      pixel world's images are rendered on the host (100 views of the
@@ -43,6 +44,18 @@ Phases, each printing its numbers on its own line:
      uint8 kernel in turns (float, uint8, uint8, float); the library calls
      are one f32 (TF32 off) and one bf16 `torch.matmul` of the chunk (the
      product alone);
+  4b. the root finder's kernel (poly_roots) against its plain route on the
+     card at the main path's banks: the sequential matcher's five-point
+     bank [16, 102, 11] (SiftMatchingConfig's 1 024 hypotheses) and the
+     mapper's P3P bank [4096, 5] (MapperOptions' 4 096), and beside them
+     the five-point bank at TwoViewOptions' 2 048, [16, 204, 11] (roots
+     within 1e-4 (1 + |re|) where every root is well conditioned, the
+     float64 roots found as often elsewhere: tests/roots_banks.py), the
+     launch, the call and the plain route timed by CUDA events beside the
+     bound; then one two_view_verify_dispatch of 16 corridor pairs at cap
+     2048 under the matcher's options, by host clock on both routes in
+     turns, with the ATen operations each dispatches and the block's
+     verdicts (equal configs, n_best within 1%);
   5. SIFT on the card: one batch of 8 rendered 640x480 images extracted on
      CUDA and on the CPU (keypoint sets and descriptors must agree within
      the tolerances of tests/test_torch_sift.py), the CUDA batch extracted
@@ -220,9 +233,9 @@ Phases, each printing its numbers on its own line:
      view.
 
 `--kernels-only` stops after phase 4 (on a corridor map built like the
-pixel world's) and the sweep kernel's timing at the dense cell's shape,
-holding its maps to the plain route's to the bit, and prints no result
-line: a short first look at a changed kernel.
+pixel world's), the sweep kernel's timing at the dense cell's shape,
+holding its maps to the plain route's to the bit, and phase 4b, and prints
+no result line: a short first look at a changed kernel.
 `--long-images N` runs phases 1-2 and phase 6 at N views (450 is
 the JAX package's BENCH_450_r5.json length, 16.8 mm there), prints the
 mapper's numbers beside that ATE and holds them to phase 6's bars, and
@@ -2139,6 +2152,158 @@ def _require_sweep_maps(tm: dict):
                                  f"{x['cost_differs']} costs differ from the plain route's on the card")
 
 
+def _roots_work(P: int, n: int, iters: int = 80, newton_iters: int = 3) -> tuple[float, float]:
+    """(bytes, f32 operations) of rooting P polynomials of degree n as
+    csrc/poly_roots.cu does, counting a complex multiply as 6 operations,
+    an add 2, a division 10, a modulus 5: a sweep's root is Horner (n
+    multiply-adds), the product of its n - 1 differences, the floor's
+    modulus, the division and the update; a Newton step's root two
+    Horners, the modulus, the division and the update. The coefficients
+    are read once, the roots and their flags written once."""
+    sweep = n * (7 * n + 8 * (n - 1) + 17)
+    newton = n * (7 * n + 7 * (n - 1) + 17)
+    return P * (4.0 * (n + 1) + 5.0 * n), P * (iters * sweep + newton_iters * newton)
+
+
+def _ops_dispatched(fn) -> int:
+    """ATen operations that one fn() dispatches (a TorchDispatchMode count)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Counter(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Counter.n += 1
+            return func(*args, **(kwargs or {}))
+
+    with Counter():
+        fn()
+    return Counter.n
+
+
+def roots_timing(seed: int) -> dict:
+    """The root finder's kernel (csrc/poly_roots.cu) at the banks the main
+    path roots: the sequential matcher's five-point bank (a 16-pair
+    corridor block at SiftMatchingConfig's hypotheses, [16, 102, 11]) and
+    the mapper's P3P bank (MapperOptions' hypotheses, [4096, 5]), and the
+    five-point bank at TwoViewOptions' 2 048 hypotheses ([16, 204, 11]):
+    the call (`polynomial.real_roots`) and the launch alone by CUDA events
+    (mean of 20 after a warm-up), its device time (a CUDA graph of 20
+    launches), the plain route on the card (`real_roots_plain`, CUDA
+    events, mean of 3), the bound, and the two routes' roots compared
+    (tests/roots_banks.compare_routes). Then one
+    `two_view_verify_dispatch` + fetch of a 16-pair block at cap 2048
+    under the matcher's options by host clock, the plain route and the
+    kernel in turns (plain, kernel, kernel, plain; median of 3 each), with
+    the ATen operations each dispatches and the block's verdicts on both
+    routes. `banks` is keyed "five_point" (the headline), "p3p" and
+    "five_point_2048"."""
+    import torch
+    from roots_banks import compare_routes, five_point_bank, p3p_bank, verification_items
+
+    from colmap_pcd_tpu_torch.models import two_view
+    from colmap_pcd_tpu_torch.models.incremental_mapper import MapperOptions
+    from colmap_pcd_tpu_torch.ops import polynomial, roots_kernel
+    from colmap_pcd_tpu_torch.utils.config import SiftMatchingConfig
+
+    cfg = SiftMatchingConfig()
+    banks = {
+        "five_point": five_point_bank(seed, S=cfg.num_hypotheses // 10, device="cuda"),
+        "p3p": p3p_bank(seed + 1, S=MapperOptions().num_ransac_hypotheses, device="cuda"),
+        "five_point_2048": five_point_bank(seed + 2, S=two_view.TwoViewOptions().num_hypotheses // 10,
+                                           device="cuda"),
+    }
+    out = {"banks": {}}
+    for key, coeffs in banks.items():
+        n = coeffs.shape[-1] - 1
+        P = coeffs.numel() // (n + 1)
+        call_ms = _cuda_ms(lambda: polynomial.real_roots(coeffs), 20)
+        kernel_ms = _cuda_ms(lambda: roots_kernel.real_roots_cuda(coeffs), 20)
+        device_ms = _graph_ms(lambda: roots_kernel.real_roots_cuda(coeffs), 20)
+        plain_ms = _cuda_ms(lambda: polynomial.real_roots_plain(coeffs), 3)
+        rk, vk = polynomial.real_roots(coeffs)
+        rp, vp = polynomial.real_roots_plain(coeffs)
+        z, _ = polynomial.find_roots(coeffs)
+        host = [a.cpu().numpy().reshape(P, n) for a in (rk, vk, rp, vp, z)]
+        bound_ms, bound_by = _bound(*_roots_work(P, n), F32_FLOPS)
+        out["banks"][key] = {
+            "shape": list(coeffs.shape), "polynomials": P, "call_ms": call_ms, "kernel_ms": kernel_ms,
+            "device_ms": device_ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "reached": bound_ms / device_ms,
+            **compare_routes(coeffs.cpu().numpy().reshape(P, n + 1).astype(np.float64), *host),
+        }
+
+    items = verification_items(seed)
+    opts = two_view.TwoViewOptions(max_error=cfg.max_error, min_num_inliers=cfg.min_num_inliers,
+                                   num_hypotheses=cfg.num_hypotheses)  # the matcher's (_tv_opts)
+
+    def dispatch():
+        return two_view.fetch(two_view.two_view_verify_dispatch(items, opts, "cuda")[0])
+
+    def plain_dispatch():
+        routed = polynomial.real_roots
+        polynomial.real_roots = polynomial.real_roots_plain
+        try:
+            return dispatch()
+        finally:
+            polynomial.real_roots = routed
+
+    def host_ms(fn):
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(times))
+
+    kern, plain = dispatch(), plain_dispatch()  # warm-up, and the verdicts
+    launches = roots_kernel.real_roots_cuda.launches
+    turns = [host_ms(fn) for fn in (plain_dispatch, dispatch, dispatch, plain_dispatch)]
+    out["dispatch"] = {
+        "hypotheses": cfg.num_hypotheses, "plain_ms": (turns[0] + turns[3]) / 2, "kernel_ms": (turns[1] + turns[2]) / 2, "turns_ms": turns,
+        "kernel_launches_per_block": (roots_kernel.real_roots_cuda.launches - launches) / 6,
+        "ops_plain": _ops_dispatched(plain_dispatch), "ops_kernel": _ops_dispatched(dispatch),
+        "config_equal": bool(np.array_equal(kern["config"], plain["config"])),
+        "calibrated": int((kern["config"] == two_view.CALIBRATED).sum()),
+        "n_best_rel_diff": float(np.max(np.abs(kern["n_best"] - plain["n_best"]) / np.maximum(plain["n_best"], 1))),
+    }
+    torch.cuda.synchronize()
+    return out
+
+
+def _log_roots_timing(rt: dict):
+    for key, x in rt["banks"].items():
+        _log(f"[roots] {key} bank {x['shape']}: call {x['call_ms']:.4f} ms, kernel {x['kernel_ms']:.4f} ms (CUDA events, mean of "
+             f"20), device {x['device_ms']:.4f} ms (graph of 20), bound {x['bound_ms']:.4f} ms ({x['bound_by']}), "
+             f"{100 * x['reached']:.1f}% reached; plain route {x['plain_ms']:.3f} ms (CUDA events, mean of 3); "
+             f"{100 * x['conditioned']:.1f}% of polynomials well conditioned, {len(x['disagree'])} of them "
+             f"disagree, largest difference {x['worst']:.3g}; float64 roots found: kernel "
+             f"{x['truth_kernel']:.4f}, plain {x['truth_plain']:.4f}")
+    d = rt["dispatch"]
+    turns = ", ".join(f"{t:.2f}" for t in d["turns_ms"])
+    _log(f"[roots] two_view_verify_dispatch + fetch, 16 pairs at cap 2048, {d['hypotheses']} hypotheses (host clock, "
+         f"median of 3, turns): plain "
+         f"route {d['plain_ms']:.2f} ms, kernel {d['kernel_ms']:.2f} ms ({turns}); "
+         f"ATen operations {d['ops_plain']} -> {d['ops_kernel']}; {d['kernel_launches_per_block']:.0f} kernel "
+         f"launch(es) a block; configs equal: {d['config_equal']} ({d['calibrated']} of 16 calibrated), n_best "
+         f"within {100 * d['n_best_rel_diff']:.2f}%")
+
+
+def _require_roots(rt: dict):
+    """The kernel's roots agree with the plain route's on the card where
+    the polynomials are well conditioned, find the float64 roots as often
+    elsewhere, launch once a block, and leave the block's verdicts as the
+    plain route's (config equal, n_best within 1%)."""
+    for key, x in rt["banks"].items():
+        if x["disagree"] or x["truth_kernel"] < x["truth_plain"] - 0.01:
+            raise AssertionError(f"roots kernel at the {key} bank {x['shape']}: {len(x['disagree'])} well-conditioned polynomials "
+                                 f"disagree (largest {x['worst']:.3g}); float64 roots found {x['truth_kernel']:.4f} "
+                                 f"against the plain route's {x['truth_plain']:.4f}")
+    d = rt["dispatch"]
+    if d["kernel_launches_per_block"] != 1 or not d["config_equal"] or d["n_best_rel_diff"] > 0.01:
+        raise AssertionError(f"verification block with the roots kernel: {d}")
+
+
 def _poisson_twice(points: np.ndarray, normals: np.ndarray) -> dict:
     """The splat and spectral solve of `poisson_mesh` at depth 7, twice on
     the card (chi and density byte-identical), timed by CUDA events; then
@@ -2519,7 +2684,7 @@ def main(argv=None) -> int:
                     help="registered views kept in phase 12's workspace")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--kernels-only", action="store_true",
-                    help="stop after the kernel checks of phases 3 and 4; no result line")
+                    help="stop after the kernel checks of phases 3, 4 and 4b; no result line")
     ap.add_argument("--long-images", type=int, default=0,
                     help="run phases 1-2 and phase 6 at this many views, then stop; no result line")
     args = ap.parse_args(argv)
@@ -2533,7 +2698,7 @@ def main(argv=None) -> int:
     sys.path.insert(0, REPO)
     sys.path.insert(0, os.path.join(REPO, "tests"))
     from colmap_pcd_tpu_torch.models.lidar_map import LidarMap
-    from colmap_pcd_tpu_torch.ops import match_kernel, nn_kernel, stereo_kernel
+    from colmap_pcd_tpu_torch.ops import match_kernel, nn_kernel, roots_kernel, stereo_kernel
     from colmap_pcd_tpu_torch.ops.cuda_build import BUILD_SECONDS
 
     # 1. environment
@@ -2560,11 +2725,11 @@ def main(argv=None) -> int:
         rendering = None if args.kernels_only else pool.submit(
             render_pixel_world, args, os.path.join(tmp, "pixels"))
         for fut in [pool.submit(f) for f in (nn_kernel.build, match_kernel.build, match_kernel.build_u8,
-                                             stereo_kernel.build)]:
+                                             stereo_kernel.build, roots_kernel.build)]:
             fut.result()
         _log(f"[build] {len(BUILD_SECONDS)} sources built and loaded in {time.perf_counter() - t0:.2f} s: "
              + ", ".join(f"{stem}.cu {sec:.2f} s" for stem, sec in sorted(BUILD_SECONDS.items())))
-        for stem in ("nn_argmin", "match_top2", "match_top2_u8", "plane_sweep"):
+        for stem in ("nn_argmin", "match_top2", "match_top2_u8", "plane_sweep", "poly_roots"):
             for line in _ptxas_lines(stem):
                 _log(f"[build] {stem}: {line}")
 
@@ -2578,7 +2743,10 @@ def main(argv=None) -> int:
             tm = cell_sweep_timing(args.seed + 12)
             _log_sweep_timing("sweep", tm)
             _require_sweep_maps(tm)
-            _log("[kernels-only] phases 2-4 passed; the main path was not driven")
+            roots = roots_timing(args.seed + 21)
+            _log_roots_timing(roots)
+            _require_roots(roots)
+            _log("[kernels-only] phases 2-4b passed; the main path was not driven")
             return 0
 
         world = rendering.result()
@@ -2594,6 +2762,11 @@ def main(argv=None) -> int:
             np.random.default_rng(args.seed + 1),
         )
         k1 = check_match_kernel(np.random.default_rng(args.seed + 2))
+        # 4b. the root finder's kernel against its plain route, and one verification block
+        clock("phase 4b")
+        roots = roots_timing(args.seed + 21)
+        _log_roots_timing(roots)
+        _require_roots(roots)
         # the reference-scale world renders on the host while phases 5-7 run
         os.makedirs(os.path.join(tmp, "reference"))
         ref_rendering = procs.submit(render_world, args.ref_images, os.path.join(tmp, "reference"), REF_SCALE, 4)
@@ -2971,6 +3144,18 @@ def main(argv=None) -> int:
                  "ms": cell_photo["kernel_ms"], "plain_ms": cell_photo["plain_ms"],
                  "bound_ms": cell_photo["bound_ms"], "bound_by": cell_photo["bound_by"], "library_ms": None,
                  "device_ms": None, "shapes": sweep_shapes}
+    # the roots kernel replaces no Pallas kernel; its headline is the
+    # matcher's five-point bank (CUDA events around the launch alone)
+    roots_launches = {"pixel world matcher": px["matcher_launches"]["real_roots_cuda"],
+                      "pixel world mapper": px["mapper_launches"]["real_roots_cuda"]}
+    for path, n in roots_launches.items():
+        if n <= 0:
+            raise AssertionError(f"the {path} never launched the roots kernel")
+    five = roots["banks"]["five_point"]
+    roots_rec = {"max_abs_err": max(x["worst"] for x in roots["banks"].values()), "ms": five["kernel_ms"],
+                 "plain_ms": five["plain_ms"], "bound_ms": five["bound_ms"], "bound_by": five["bound_by"],
+                 "library_ms": None, "device_ms": five["device_ms"],
+                 "shapes": {**roots["banks"], "verification block, 16 pairs at cap 2048": roots["dispatch"]}}
     clock("the result")
     print(json.dumps({"kernels": [
         entry("nn_argmin", "nn_argmin.cu", 191, k2_launches["pixel world"], k2,
@@ -2981,6 +3166,8 @@ def main(argv=None) -> int:
               k1["match_top2_u8"], mma="wgmma", launches_by_path=u8_launches),
         entry("plane_sweep", "plane_sweep.cu", None, sweep_launches["patch_match_stereo"], sweep_rec,
               launches_by_path=sweep_launches),
+        entry("poly_roots", "poly_roots.cu", None, roots_launches["pixel world matcher"], roots_rec,
+              launches_by_path=roots_launches),
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,14 +1,22 @@
 """Batched polynomial root finding (complex64 Durand-Kerner).
 
 Port of colmap_pcd_tpu/ops/polynomial.py. A fixed-length simultaneous
-iteration over a whole RANSAC bank of polynomials at once (P3P's quartics),
-followed by a short Newton polish; the reference solves these per sample with
-a companion matrix (base/polynomial.cc).
+iteration over a whole RANSAC bank of polynomials at once (P3P's quartics,
+the five-point solver's degree-10 polynomials), followed by a short Newton
+polish; the reference solves these per sample with a companion matrix
+(base/polynomial.cc). `real_roots` sends CUDA tensors to one launch of the
+hand kernel csrc/poly_roots.cu (ops/roots_kernel.py) and CPU tensors to the
+plain PyTorch route, `real_roots_plain`, which runs on any device.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
+
+from ..utils.logging_utils import PHASES
+from . import roots_kernel
 
 Tensor = torch.Tensor
 
@@ -95,7 +103,26 @@ def real_roots(coeffs: Tensor, rel_imag_tol: float = 1e-2, **kw):
     """Real roots of real polynomials: (roots [..., n] f32, valid [..., n]).
 
     A root counts as real when |imag| <= tol * (1 + |real|); invalid slots
-    carry 0.0 with valid=False (fixed shapes for RANSAC banks)."""
+    carry 0.0 with valid=False (fixed shapes for RANSAC banks). CUDA tensors
+    launch the hand kernel (`roots_kernel.real_roots_cuda`, which raises on
+    what it does not take), CPU tensors take `real_roots_plain`. PHASES
+    counts the polynomials in `roots_polys` and those the kernel rooted in
+    `roots_kernel_polys`."""
+    n = math.prod(coeffs.shape[:-1])
+    on_card = coeffs.device.type == "cuda"
+    if on_card:
+        out = roots_kernel.real_roots_cuda(coeffs.contiguous(), rel_imag_tol, **kw)
+    else:
+        out = real_roots_plain(coeffs, rel_imag_tol, **kw)
+    PHASES.count("roots_polys", n)
+    PHASES.count("roots_kernel_polys", n if on_card else 0)
+    return out
+
+
+def real_roots_plain(coeffs: Tensor, rel_imag_tol: float = 1e-2, **kw):
+    """`real_roots` in plain PyTorch on any device (`find_roots`, then the
+    test on the imaginary parts): the CPU's route and the kernel's
+    yardstick on the card."""
     z, ok = find_roots(coeffs, **kw)
     re, im = z.real, z.imag
     valid = (torch.abs(im) <= rel_imag_tol * (1.0 + torch.abs(re))) & ok[..., None]

@@ -622,3 +622,225 @@ def test_ransac_pnp_on_card_ignores_padding(cuda_device, n):
     assert int(r.num_inliers) == int(rp.num_inliers) >= 0.6 * n
     np.testing.assert_allclose(r.q.cpu().numpy(), rp.q.cpu().numpy(), atol=1e-5)
     np.testing.assert_allclose(r.t.cpu().numpy(), rp.t.cpu().numpy(), atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the root finder's kernel (csrc/poly_roots.cu) against the plain route on
+# the card, by roots_banks.compare_routes: roots within 1e-4 (1 + |re|)
+# where every root of the polynomial is well conditioned, and the float64
+# roots found as often as the plain route finds them elsewhere.
+
+
+def _both_routes(coeffs):
+    """Kernel and plain route on the same card coefficients: (c float64 [P,
+    n+1], kernel roots, valid, plain roots, valid, the plain route's
+    complex roots), each [P, n] on the host."""
+    from colmap_pcd_tpu_torch.ops import polynomial, roots_kernel
+
+    before = roots_kernel.real_roots_cuda.launches
+    rk, vk = polynomial.real_roots(coeffs)
+    torch.cuda.synchronize()
+    assert roots_kernel.real_roots_cuda.launches == before + 1
+    rp, vp = polynomial.real_roots_plain(coeffs)
+    z, _ = polynomial.find_roots(coeffs)
+    n = coeffs.shape[-1]
+    c = coeffs.cpu().numpy().reshape(-1, n).astype(np.float64)
+    return (c, *(a.cpu().numpy().reshape(-1, n - 1) for a in (rk, vk, rp, vp, z)))
+
+
+def _assert_routes_agree(coeffs, min_conditioned: float):
+    import roots_banks
+
+    c, rk, vk, rp, vp, z = _both_routes(coeffs)
+    cmp = roots_banks.compare_routes(c, rk, vk, rp, vp, z)
+    assert cmp["conditioned"] >= min_conditioned, cmp
+    assert not cmp["disagree"], cmp
+    assert cmp["truth_kernel"] >= cmp["truth_plain"] - 0.01, cmp
+    return c, rk, vk, rp, vp
+
+
+@pytest.mark.parametrize("bank", ["five_point", "p3p"])
+def test_roots_kernel_matches_plain_route_on_the_banks(cuda_device, bank):
+    """The five-point bank of a 16-pair corridor block [16, 204, 11] and a
+    P3P bank [512, 5], as the solvers build them on the card."""
+    import roots_banks
+
+    coeffs = (roots_banks.five_point_bank(3, device=cuda_device) if bank == "five_point"
+              else roots_banks.p3p_bank(4, device=cuda_device))
+    assert coeffs.shape == ((16, 204, 11) if bank == "five_point" else (512, 5))
+    _assert_routes_agree(coeffs, 0.75 if bank == "five_point" else 0.85)
+
+
+@pytest.mark.parametrize("deg", list(range(1, 11)))
+def test_roots_kernel_hard_polynomials(cuda_device, deg):
+    """A vanishing leading coefficient (no roots on either route), a double
+    root (both find it), all-complex roots, the balancing's clamps at 7 and
+    at 0, and 256 random polynomials of the degree."""
+    import roots_banks
+
+    hard = roots_banks.hard_bank(deg)
+    bank = np.concatenate([hard, roots_banks.random_bank(np.random.default_rng(deg), deg, 256)])
+    _, rk, vk, rp, vp = _assert_routes_agree(torch.as_tensor(bank, device=cuda_device), 0.6)
+    assert not vk[0].any() and not vp[0].any()
+    for roots, valid in ((rk, vk), (rp, vp)):
+        assert int((np.abs(roots[1][valid[1]] - 1.5) < 5e-3).sum()) == min(deg, 2), roots[1]
+
+
+def _sign_scale_dist(A, B):
+    a, b = A.ravel() / np.linalg.norm(A), B.ravel() / np.linalg.norm(B)
+    return min(np.abs(a - b).max(), np.abs(a + b).max())
+
+
+def _exact_five_point_samples(rng, n_samples: int):
+    """Noise-free five-point samples in normalized coordinates, each from
+    its own relative pose, with its true E: test_torch_two_view.py's
+    _relative_pose (a small rotation, a mostly sideways unit step, points
+    ~10 m ahead) in numpy."""
+    from colmap_pcd_tpu_torch.ops import np_geom
+
+    x1s, x2s, Es = [], [], []
+    for _ in range(n_samples):
+        w = rng.normal(size=3) * 0.05
+        angle = np.linalg.norm(w)
+        R = np_geom.quat_to_rotmat(np.concatenate([[np.cos(angle / 2)], np.sin(angle / 2) * w / angle]))
+        t = np.asarray([1.0, 0.1, 0.05]) + rng.normal(0, 0.1, 3)
+        X = rng.uniform(-3, 3, (5, 3)) + np.asarray([0, 0, 10.0])
+        Xc = X @ R.T + t
+        x1s.append(X[:, :2] / X[:, 2:])
+        x2s.append(Xc[:, :2] / Xc[:, 2:])
+        Es.append(np.cross(np.eye(3), t) @ R)
+    return np.asarray(x1s, np.float32), np.asarray(x2s, np.float32), Es
+
+
+def _with_plain_roots(fn):
+    """fn() with polynomial.real_roots sent to the plain route on any
+    device (the card's yardstick)."""
+    from colmap_pcd_tpu_torch.ops import polynomial
+
+    routed = polynomial.real_roots
+    polynomial.real_roots = polynomial.real_roots_plain
+    try:
+        return fn()
+    finally:
+        polynomial.real_roots = routed
+
+
+def test_five_point_solution_sets_kernel_and_plain_route(cuda_device):
+    """Exact samples: the kernel's sets hold the true E (within 1e-2) in as
+    many samples as the plain route's, less 1%, and in >= 70% (the CPU
+    holds 80% at 12 samples in tests/test_torch_two_view.py's
+    test_five_point_solution_sets; on the card the plain route itself held
+    49-56 of 64 over three seeds, the kernel the same counts), and the two
+    routes' solution sets agree (same count, each within 1e-3) on >= 85%
+    (56-60 of 64 on the card)."""
+    from colmap_pcd_tpu_torch.ops import solvers
+
+    x1, x2, Es = _exact_five_point_samples(np.random.default_rng(11), 128)
+    x1d, x2d = torch.as_tensor(x1, device=cuda_device), torch.as_tensor(x2, device=cuda_device)
+    Ek, vk = (a.cpu().numpy() for a in solvers.five_point(x1d, x2d))
+    Ep, vp = (a.cpu().numpy() for a in _with_plain_roots(lambda: solvers.five_point(x1d, x2d)))
+    hits = {"kernel": 0, "plain": 0}
+    same = 0
+    for s, E in enumerate(Es):
+        for name, Ex, vx in (("kernel", Ek, vk), ("plain", Ep, vp)):
+            hits[name] += min([_sign_scale_dist(Ex[s, k], E) for k in np.nonzero(vx[s])[0]] + [9.0]) < 1e-2
+        ks, ps = np.nonzero(vk[s])[0], np.nonzero(vp[s])[0]
+        same += len(ks) == len(ps) and all(min(_sign_scale_dist(Ek[s, k], Ep[s, p]) for p in ps) < 1e-3 for k in ks)
+    n = len(Es)
+    assert hits["kernel"] >= hits["plain"] - 0.01 * n and hits["kernel"] >= 0.7 * n, (hits, same)
+    assert same >= 0.85 * n, (hits, same)
+
+
+def test_p3p_solution_sets_kernel_and_plain_route(cuda_device):
+    """Noise-free PnP samples: the kernel's sets hold the true pose (within
+    1e-3) in as many samples as the plain route's, less 1%, and in >= 85%
+    (the card's plain route: 229-236 of 256 over three seeds; one sample
+    in a hundred is ill-conditioned enough that either route alone misses
+    it, by up to 3e-2), and the whole solution sets agree on >= 90%
+    (tests/test_torch_geometry.py's test_p3p_parity_as_sets)."""
+    import roots_banks
+
+    from colmap_pcd_tpu_torch.ops import se3, solvers
+
+    rng = np.random.default_rng(5)
+    uv, X = roots_banks.pnp_world(rng, 300, noise=0.0, outliers=0.0)
+    idx = rng.integers(0, 300, size=(256, 3))
+    uvd, Xd = torch.as_tensor(uv[idx], device=cuda_device), torch.as_tensor(X[idx], device=cuda_device)
+    qk, tk, vk = (a.cpu().numpy() for a in solvers.p3p(uvd, Xd))
+    qp, tp, vp = (a.cpu().numpy() for a in _with_plain_roots(lambda: solvers.p3p(uvd, Xd)))
+    q_true, t_true = np.asarray([1.0, 0, 0, 0], np.float32), np.asarray([0.3, -0.2, 0.5], np.float32)
+
+    def close(qa, ta, qb, tb):
+        ang = float(se3.angle_between(torch.as_tensor(qa), torch.as_tensor(qb)))
+        return ang < 1e-3 and np.linalg.norm(ta - tb) / max(np.linalg.norm(tb), 1e-6) < 1e-3
+
+    n_sets = 0
+    found = {"kernel": 0, "plain": 0}
+    for s in range(idx.shape[0]):
+        sols_k = [(qk[s, k], tk[s, k]) for k in range(4) if vk[s, k]]
+        sols_p = [(qp[s, k], tp[s, k]) for k in range(4) if vp[s, k]]
+        found["kernel"] += any(close(*k, q_true, t_true) for k in sols_k)
+        found["plain"] += any(close(*p, q_true, t_true) for p in sols_p)
+        n_sets += len(sols_k) == len(sols_p) and all(any(close(*a, *b) for b in sols_p) for a in sols_k)
+    n = idx.shape[0]
+    assert found["kernel"] >= found["plain"] - 0.01 * n and found["kernel"] >= 0.85 * n, (found, n_sets)
+    assert n_sets >= 0.9 * n, (found, n_sets)
+
+
+def test_verify_block_on_card_kernel_equals_plain_route(cuda_device):
+    """A 16-pair corridor block (1 500 matches a pair, cap 2048) through
+    two_view_verify_dispatch: the kernel roots every polynomial of the E
+    bank in one launch, and the block's verdicts equal the plain route's
+    (config equal, n_best within 1%)."""
+    import roots_banks
+
+    from colmap_pcd_tpu_torch.models import two_view
+    from colmap_pcd_tpu_torch.ops import roots_kernel
+    from colmap_pcd_tpu_torch.utils.logging_utils import PHASES
+
+    items = roots_banks.verification_items(21)
+    opts = two_view.TwoViewOptions()
+    before = roots_kernel.real_roots_cuda.launches
+    counts = {k: PHASES.counts.get(k, 0) for k in ("roots_polys", "roots_kernel_polys")}
+    kern = two_view.fetch(two_view.two_view_verify_dispatch(items, opts, cuda_device)[0])
+    assert roots_kernel.real_roots_cuda.launches == before + 1
+    delta = {k: PHASES.counts.get(k, 0) - v for k, v in counts.items()}
+    assert delta == {"roots_polys": 16 * (2048 // 10), "roots_kernel_polys": 16 * (2048 // 10)}
+    plain = two_view.fetch(_with_plain_roots(lambda: two_view.two_view_verify_dispatch(items, opts, cuda_device)[0]))
+    assert roots_kernel.real_roots_cuda.launches == before + 1
+    np.testing.assert_array_equal(kern["config"], plain["config"])
+    assert (kern["config"] == two_view.CALIBRATED).all(), kern["config"]
+    assert np.all(np.abs(kern["n_best"] - plain["n_best"]) <= 0.01 * plain["n_best"]), (kern["n_best"], plain["n_best"])
+
+
+def test_ransac_pnp_on_card_launches_the_roots_kernel(cuda_device):
+    """Every ransac_pnp call roots its P3P bank in one kernel launch."""
+    import roots_banks
+
+    from colmap_pcd_tpu_torch.ops import ransac, roots_kernel
+
+    uv, X = roots_banks.pnp_world(np.random.default_rng(8), 600)
+    args = [torch.as_tensor(a, device=cuda_device) for a in (uv, X, np.ones(600, np.float32))]
+    before = roots_kernel.real_roots_cuda.launches
+    res = ransac.ransac_pnp(*args, torch.Generator(device=cuda_device).manual_seed(1),
+                            ransac.RansacOptions(num_hypotheses=1024), max_error=4.0 / 500.0)
+    assert roots_kernel.real_roots_cuda.launches == before + 1
+    assert int(res.num_inliers) >= 0.6 * 600
+
+
+@pytest.mark.parametrize("case", ["degree 11", "float64", "strided"])
+def test_roots_kernel_refuses_what_it_does_not_take(cuda_device, case):
+    """On the card the route raises; it never falls back to the plain one.
+    real_roots makes a strided bank contiguous; the wrapper refuses it."""
+    from colmap_pcd_tpu_torch.ops import polynomial, roots_kernel
+
+    bad = {"degree 11": torch.ones(8, 12, device=cuda_device),
+           "float64": torch.ones(8, 5, device=cuda_device, dtype=torch.float64),
+           "strided": torch.ones(5, 8, device=cuda_device).t()}[case]
+    launches = roots_kernel.real_roots_cuda.launches
+    with pytest.raises(ValueError, match="real_roots_cuda"):
+        roots_kernel.real_roots_cuda(bad)
+    if case != "strided":
+        with pytest.raises(ValueError, match="real_roots_cuda"):
+            polynomial.real_roots(bad)
+    assert roots_kernel.real_roots_cuda.launches == launches
