@@ -120,6 +120,7 @@ def nvidia_smi() -> str:
 def kernel_counters() -> dict:
     """The hand kernels' wrappers by name; each counts its launches."""
     return {"match_top2": match_kernel.match_top2, "match_top2_u8": match_kernel.match_top2_u8,
+            "match_top2_u8_guided": match_kernel.match_top2_u8_guided,
             "nn_argmin": nn_kernel.nn_argmin, "plane_sweep_cuda": stereo_kernel.plane_sweep_cuda,
             "real_roots_cuda": roots_kernel.real_roots_cuda}
 

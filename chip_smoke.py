@@ -43,7 +43,11 @@ Phases, each printing its numbers on its own line:
      bit-identical similarities. Times as in 3., the float (rows) and the
      uint8 kernel in turns (float, uint8, uint8, float); the library calls
      are one f32 (TF32 off) and one bf16 `torch.matmul` of the chunk (the
-     product alone);
+     product alone). Then the guided uint8 kernel (the epipolar mask in its
+     epilogue) at the guided matcher's chunk (B = 16 at cap 8192, ragged
+     6 000-8 192, keypoints on a forward step's epipolar lines): its rows
+     equal to its plain version bit for bit, timed beside the unguided
+     uint8 call on the same bank, its bound and share reached;
   4b. the root finder's kernel (poly_roots) against its plain route on the
      card at the main path's banks: the sequential matcher's five-point
      bank [16, 102, 11] (SiftMatchingConfig's 1 024 hypotheses) and the
@@ -118,9 +122,10 @@ Phases, each printing its numbers on its own line:
   9. the classic path: a 20-image world (step 1.0, 0.2 px noise), the
      sequential matcher, then `mapper` without a lidar map, initialized on
      (1, 3); registered images, median reprojection error and the ATE after
-     a sim(3) alignment. Then the float route: `sequential_matcher
-     --SiftMatching.guided_matching 1` on a copy of that database, which
-     matches pair by pair through match_top2;
+     a sim(3) alignment. Then `sequential_matcher
+     --SiftMatching.guided_matching 1` on a copy of that database, whose
+     batched chunks re-match their verified pairs through the guided uint8
+     kernel;
  10. the SfM tools on the pixel world's model and database, each through
      cli.main with the launch counts zeroed just before it: model_analyzer;
      bundle_adjuster with the lidar map (K2 over every model point, and K2
@@ -187,8 +192,8 @@ Phases, each printing its numbers on its own line:
      views; dryrun_multichip over the mesh's size;
  14. checks: match_top2_u8 launched by every matcher run (spatial_matcher,
      vocab_tree_matcher and the loop-detecting sequential matcher
-     included), match_top2 by the guided matcher and the sharded
-     MatchPool, K2 by every lidar mapper run (the sharded one included),
+     included), the guided uint8 kernel by the guided matcher, match_top2
+     by the sharded MatchPool, K2 by every lidar mapper run (the sharded one included),
      bundle_adjuster, hierarchical_mapper and the resumed mapper; the pixel
      world holds 100 images of 300-2 048 keypoints and its model >= 95%
      registered with ATE < 0.10 m and scale error < 2%, and so does the
@@ -771,7 +776,85 @@ def check_match_kernel(rng) -> dict:
                                    bound_ms=u8_bound[0], bound_by=u8_bound[1], float_kernel_ms=f32_ms)
     f32.update(f32["shapes"]["matcher chunk B=16 cap 2048"])
     u8.update(u8["shapes"]["pixel-world chunk B=16 cap 1024"])  # the main path's shape
-    return {"match_top2": f32, "match_top2_u8": u8}
+    return {"match_top2": f32, "match_top2_u8": u8, "match_top2_u8_guided": guided_timing(rng)}
+
+
+def _epipolar_chunk(rng, B, N, n_lo, focal=1000.0, width=1280, height=960):
+    """The guided matcher's chunk: B pairs of uint8 descriptors at cap N
+    (n_lo..N valid per side, zero rows past them), image 2's matches on
+    their points' projections (1 px noise) under a forward step, and F."""
+    K = np.asarray([[focal, 0, width / 2], [0, focal, height / 2], [0, 0, 1]])
+    Kinv = np.linalg.inv(K)
+    d1, d2 = np.zeros((B, N, 128), np.float32), np.zeros((B, N, 128), np.float32)
+    uv1, uv2 = np.zeros((B, N, 2), np.float32), np.zeros((B, N, 2), np.float32)
+    v1, v2, Fs = np.zeros((B, N), np.float32), np.zeros((B, N), np.float32), []
+    for b in range(B):
+        a, c, _, _ = _k1_case(rng, 1, N, N)
+        n1, n2 = (int(rng.integers(n_lo, N + 1)) for _ in range(2))
+        X = np.stack([rng.uniform(-4, 4, N), rng.uniform(-3, 2, N), rng.uniform(4, 16, N)], -1)
+        t = np.asarray([0.0, 0.0, -0.8]) + rng.normal(0, 0.02, 3)
+        x1, x2 = X @ K.T, (X + t) @ K.T
+        d1[b, :n1], v1[b, :n1], uv1[b] = a[0, :n1], 1.0, x1[:, :2] / x1[:, 2:]
+        # d2 from d1's rows where they share a point, fresh elsewhere
+        shared = min(n1, n2) * 3 // 4
+        d2[b, :n2] = np.concatenate([a[0, :shared], c[0, shared:n2]])
+        v2[b, :n2] = 1.0
+        uv2[b] = np.concatenate([x2[:shared, :2] / x2[:shared, 2:] + rng.normal(0, 1.0, (shared, 2)),
+                                 rng.uniform([0, 0], [width, height], (N - shared, 2))])
+        tx = np.asarray([[0, -t[2], t[1]], [t[2], 0, -t[0]], [-t[1], t[0], 0]])
+        F = Kinv.T @ tx @ Kinv
+        Fs.append(F / np.abs(F).max())
+    return _quantize(d1), _quantize(d2), v1, v2, uv1, uv2, np.stack(Fs)
+
+
+def guided_timing(rng) -> dict:
+    """Phase 4's guided K1 at the matcher's chunk (16 pairs at cap 8192,
+    6 000-8 192 valid a side): its rows held to the plain version bit for
+    bit, then timed beside the unguided uint8 call on the same bank; the
+    bound counts the valid rows and columns: 2 x 128 int8 operations and 8
+    f32 operations (the Sampson test) each, the two units' times added,
+    against each valid point's descriptor, inverse norm and record read
+    once."""
+    import torch
+
+    from colmap_pcd_tpu_torch.ops import match_kernel
+
+    dev = torch.device("cuda")
+    u1, u2, v1, v2, uv1, uv2, F = (torch.as_tensor(x, device=dev) for x in _epipolar_chunk(rng, 16, 8192, 6000))
+    inv1, inv2 = match_kernel.inverse_norms(u1), match_kernel.inverse_norms(u2)
+    g1, g2 = match_kernel.point_records(uv1, uv2, F, 4.0)
+    s1, s2, idx = match_kernel.match_top2_u8_guided(u1, u2, inv1, inv2, g1, g2, v2, v1)
+    torch.cuda.synchronize()
+    r1, r2, ridx = match_kernel.match_top2_u8_guided_reference(u1, u2, inv1, inv2, g1, g2, v2, v1)
+    if not (torch.equal(s1, r1) and torch.equal(s2, r2) and torch.equal(idx, ridx)):
+        raise AssertionError(f"the guided K1 disagrees with its plain version: {int((idx != ridx).sum())} "
+                             f"index mismatches, max sim err {float((s1 - r1).abs().max()):.3g}")
+    masked = int(((s1 < match_kernel.match_top2_u8(u1, u2, inv1, inv2, v2, v1)[0]) & (v1 > 0)).sum())
+
+    def run_guided():
+        return match_kernel.match_top2_u8_guided(u1, u2, inv1, inv2, g1, g2, v2, v1)
+
+    def run_u8():
+        return match_kernel.match_top2_u8(u1, u2, inv1, inv2, v2, v1)
+
+    guided_ms, u8_ms, turns = _turns_ms(run_guided, run_u8, 5)
+    guided_dev, u8_dev = _graph_ms(run_guided, 5), _graph_ms(run_u8, 5)
+    plain_ms = _cuda_ms(lambda: match_kernel.match_top2_u8_guided_reference(u1, u2, inv1, inv2, g1, g2, v2, v1), 1)
+    n1, n2 = v1.sum(-1).double(), v2.sum(-1).double()
+    sims, points = float((n1 * n2).sum()), float((n1 + n2).sum())
+    ops_ms = (2.0 * 128 * sims / INT8_OPS + 8.0 * sims / F32_FLOPS) * 1e3
+    bytes_ms = points * (128 + 4 + 16) / HBM_BYTES_S * 1e3
+    bound_ms, bound_by = (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+    _log(f"[k1-guided] chunk B=16 cap 8192: rows equal to the plain version bit for bit ({masked} rows whose best "
+         f"the mask removed); guided {guided_ms:.4f} ms per call, {guided_dev:.4f} ms on the device (CUDA graph), "
+         f"bound {bound_ms:.4f} ms ({bound_by}), {100 * bound_ms / guided_dev:.1f}% reached, plain "
+         f"{plain_ms:.4f} ms; unguided uint8 on the same bank {u8_ms:.4f} / {u8_dev:.4f} ms; turns "
+         f"guided/uint8/uint8/guided {' '.join(f'{t:.4f}' for t in turns)}")
+    if masked == 0:
+        raise AssertionError("the guided K1's mask removed no candidate")
+    shape = dict(ms=guided_ms, device_ms=guided_dev, plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms,
+                 bound_by=bound_by, unguided_ms=u8_ms, unguided_device_ms=u8_dev)
+    return {"max_abs_err": 0.0, "shapes": {"chunk B=16 cap 8192": shape}, **shape}
 
 
 def _run_cli(argv: list, counters: dict) -> tuple[int, float, dict]:
@@ -1231,7 +1314,8 @@ def run_classic_path(args, tmp: str) -> dict:
     )
     if rc != 0:
         raise RuntimeError(f"sequential_matcher (classic world) exited with {rc}")
-    # the float route: guided matching goes pair by pair through match_top2
+    # guided matching keeps the batched uint8 route: its re-match launches
+    # the guided K1 (rows and transpose) once a chunk
     rc, g_seconds, g_launches = _run_cli(
         ["sequential_matcher", "--database_path", guided_db, "--SequentialMatching.overlap", "2",
          "--SiftMatching.guided_matching", "1"], kernels,
@@ -2897,7 +2981,8 @@ def main(argv=None) -> int:
              f"{cl['ate_sim3_m']:.6f} m; matcher {cl['matcher_seconds']:.3f} s "
              f"(K1 launches {cl['matcher_launches']['match_top2_u8']} uint8), mapper "
              f"{cl['mapper_seconds']:.3f} s; guided matcher {cl['guided_seconds']:.3f} s "
-             f"(K1 launches {cl['guided_launches']['match_top2']} float)")
+             f"(K1 launches {cl['guided_launches']['match_top2_u8']} uint8, "
+             f"{cl['guided_launches']['match_top2_u8_guided']} guided)")
 
         # 10. the SfM tools on the pixel world's model and database
         clock("phase 10")
@@ -3066,8 +3151,8 @@ def main(argv=None) -> int:
                    "hierarchical_mapper": cmds["hierarchical_mapper"]["launches"]["nn_argmin"],
                    "pixel world, sharded BA": sh["mapper"]["launches"]["nn_argmin"],
                    "resume": resumed["launches"]["nn_argmin"]}
-    f32_launches = {"guided matcher, classic world": cl["guided_launches"]["match_top2"],
-                    "MatchPool, sharded": sh["pool"]["launches"]}
+    f32_launches = {"MatchPool, sharded": sh["pool"]["launches"]}
+    guided_launches = {"guided matcher, classic world": cl["guided_launches"]["match_top2_u8_guided"]}
     u8_launches["spatial_matcher"] = cmds["spatial_matcher"]["launches"]["match_top2_u8"]
     for label in ("vocab_tree_matcher", "sequential_matcher loop detection"):
         u8_launches[label] = ph["retrieval"]["commands"][label]["launches"]["match_top2_u8"]
@@ -3080,6 +3165,9 @@ def main(argv=None) -> int:
     for path, n in f32_launches.items():
         if n <= 0:
             raise AssertionError(f"the {path} run never launched the float K1")
+    for path, n in guided_launches.items():
+        if n <= 0:
+            raise AssertionError(f"the {path} run never launched the guided K1")
     sweep_launches = {label: dn["commands"][label]["launches"]["plane_sweep_cuda"]
                       for label in ("patch_match_stereo", "automatic_reconstructor --dense 1")}
     sweep_launches.update({"sharded stereo": sh["stereo"]["launches"],
@@ -3125,8 +3213,9 @@ def main(argv=None) -> int:
             "device_ms": rec["device_ms"], **more, "shapes": rec["shapes"],
         }
 
-    # `launches` is the pixel world's count (the guided matcher's for the
-    # float K1, which no other path runs); the other paths' stand beside it
+    # `launches` is the pixel world's count (MatchPool's for the float K1 and
+    # the guided matcher's for the guided K1, which no other path runs); the
+    # other paths' stand beside it
     k2["shapes"][f"Q={st['ba_queries']} N={world['map_points'].shape[0]} (bundle_adjuster)"] = st["k2_ba_shape"]
     k2["shapes"][f"Q={rf['max_queries']} N={rf['map_points']} (reference scale, the run's largest)"] = \
         rf["k2_shape"]
@@ -3160,8 +3249,10 @@ def main(argv=None) -> int:
     print(json.dumps({"kernels": [
         entry("nn_argmin", "nn_argmin.cu", 191, k2_launches["pixel world"], k2,
               launches_by_path=k2_launches),
-        entry("match_top2", "match_top2.cu", 94, cl["guided_launches"]["match_top2"], k1["match_top2"],
+        entry("match_top2", "match_top2.cu", 94, sh["pool"]["launches"], k1["match_top2"],
               mma="fma", launches_by_path=f32_launches),
+        entry("match_top2_u8_guided", "match_top2_u8.cu", None, guided_launches["guided matcher, classic world"],
+              k1["match_top2_u8_guided"], mma="wgmma", launches_by_path=guided_launches),
         entry("match_top2_u8", "match_top2_u8.cu", 94, u8_launches["pixel world"],
               k1["match_top2_u8"], mma="wgmma", launches_by_path=u8_launches),
         entry("plane_sweep", "plane_sweep.cu", None, sweep_launches["patch_match_stereo"], sweep_rec,

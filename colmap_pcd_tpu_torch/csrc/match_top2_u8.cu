@@ -45,6 +45,22 @@
 //     the columns; a second small kernel then merges the splits. With one
 //     split the main kernel writes the results itself.
 //
+// The guided variant (`guided_top2_kernel`, `guided_merge_kernel`: guided
+// matching, feature/matching.h:277-310) is the same kernel with an
+// epipolar mask in its epilogue. Every point carries a float4 (x, y, z, n):
+// image 1's points their epipolar line F x1 = (a, b, c) and n = e^2 (a^2 +
+// b^2), image 2's points (u, v, 1) and n = e^2 |(F^T x2)_xy|^2, e the
+// largest Sampson error. A similarity stays where
+//     (x_r u_c + y_r v_c + z_r w_c)^2 < n_r + n_c,
+// the Sampson test, and is -2 elsewhere, before the fold. Each product and
+// sum is rounded on its own (no FMA), and both sides enter symmetrically, so
+// the launch on the transpose (the cross-check's column bests) forms the
+// transposed mask bit for bit and the plain version in PyTorch agrees to the
+// last bit. The producer copies a tile's 128 column records (2 KB) with one
+// bulk copy beside the tile's TMA load; the caller pads both record arrays
+// to a multiple of 128 points with n = +inf, so columns past the ragged edge
+// pass the test and stay at -inf.
+//
 // Plain C interface (loaded with ctypes); launches on the caller's stream,
 // allocates nothing, returns the CUDA error code of the launches (1000 +
 // CUresult if a tensor map cannot be encoded).
@@ -74,6 +90,10 @@ constexpr int OFF_SCALE = OFF_B + STAGES * TILE_BYTES;
 constexpr int OFF_BAR = OFF_SCALE + STAGES * TN * (int)sizeof(float2);
 constexpr int OFF_LAST = OFF_BAR + 128;
 constexpr int SMEM_BYTES = OFF_LAST + 64 + 1024;  // + alignment slack
+// the guided variant's column records, one float4 a column of each stage
+constexpr int OFF_GEO = OFF_LAST + 64;
+constexpr int GEO_TILE_BYTES = TN * (int)sizeof(float4);
+constexpr int SMEM_BYTES_GUIDED = OFF_GEO + STAGES * GEO_TILE_BYTES + 1024;
 
 struct Top2 {
   float b1, b2;
@@ -149,6 +169,22 @@ __device__ __forceinline__ void tma_load_rows(uint32_t dst, const CUtensorMap* m
       : "memory");
 }
 
+// `bytes` (a multiple of 16, both addresses 16-byte aligned) of global memory
+// into shared memory; completion lands on the mbarrier
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, int bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// the Sampson test of a (row, column) pair of point records: v where the
+// pair lies within the error, else -2; every operation rounded on its own
+__device__ __forceinline__ float epipolar(float v, const float4& r, const float4& c) {
+  const float t = __fadd_rn(__fadd_rn(__fmul_rn(r.x, c.x), __fmul_rn(r.y, c.y)), __fmul_rn(r.z, c.z));
+  return __fmul_rn(t, t) < __fadd_rn(r.w, c.w) ? v : -2.f;
+}
+
 // shared-memory matrix descriptor: K-major rows of 128 bytes, 128-byte
 // swizzle, 8-row groups 1024 bytes apart; a k-step of 32 bytes adds 2
 __device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
@@ -198,6 +234,7 @@ __device__ __forceinline__ void wgmma_wait() {
 struct Ring {
   uint32_t a, b, full, empty, a_full;  // shared-memory addresses
   const float2* scale;                 // [STAGES][TN]
+  const float4* geo;                   // [STAGES][TN], the guided variant's column records
 };
 
 // start the MMAs of column tile t into acc and commit them as one group
@@ -213,9 +250,12 @@ __device__ __forceinline__ void start_tile(int (&acc)[64], const Ring& r, int t,
 }
 
 // fold the finished tile t into the two rows' running top-2 and hand its
-// stage back to the producer
+// stage back to the producer; GUIDED masks each similarity by the Sampson
+// test of the rows' records g_lo, g_hi against the columns'
+template <bool GUIDED>
 __device__ __forceinline__ void finish_tile(int (&acc)[64], const Ring& r, int t, int col0, int lane,
-                                            float inv_lo, float inv_hi, Top2& lo, Top2& hi) {
+                                            float inv_lo, float inv_hi, const float4& g_lo,
+                                            const float4& g_hi, Top2& lo, Top2& hi) {
   const int s = t % STAGES;
   fence_acc(acc);
   const int cq = 2 * (lane & 3);
@@ -224,20 +264,35 @@ __device__ __forceinline__ void finish_tile(int (&acc)[64], const Ring& r, int t
   for (int j = 0; j < TN / 8; ++j) {
     const float4 c = *reinterpret_cast<const float4*>(sc + 8 * j);  // two columns
     const int col = col0 + 8 * j + cq;
-    fold(lo, fmaf((float)acc[4 * j + 0], inv_lo * c.x, c.y), col);
-    fold(lo, fmaf((float)acc[4 * j + 1], inv_lo * c.z, c.w), col + 1);
-    fold(hi, fmaf((float)acc[4 * j + 2], inv_hi * c.x, c.y), col);
-    fold(hi, fmaf((float)acc[4 * j + 3], inv_hi * c.z, c.w), col + 1);
+    float v0 = fmaf((float)acc[4 * j + 0], inv_lo * c.x, c.y);
+    float v1 = fmaf((float)acc[4 * j + 1], inv_lo * c.z, c.w);
+    float v2 = fmaf((float)acc[4 * j + 2], inv_hi * c.x, c.y);
+    float v3 = fmaf((float)acc[4 * j + 3], inv_hi * c.z, c.w);
+    if constexpr (GUIDED) {
+      const float4 e0 = r.geo[s * TN + 8 * j + cq];
+      const float4 e1 = r.geo[s * TN + 8 * j + cq + 1];
+      v0 = epipolar(v0, g_lo, e0);
+      v1 = epipolar(v1, g_lo, e1);
+      v2 = epipolar(v2, g_hi, e0);
+      v3 = epipolar(v3, g_hi, e1);
+    }
+    fold(lo, v0, col);
+    fold(lo, v1, col + 1);
+    fold(hi, v2, col);
+    fold(hi, v3, col + 1);
   }
   mbar_arrive(r.empty + 8 * s);
 }
 
-__global__ void __launch_bounds__(THREADS, 1)
-top2_u8_kernel(const __grid_constant__ CUtensorMap map1, const __grid_constant__ CUtensorMap map2,
-               int N1, int N2, const float* __restrict__ inv1, const float* __restrict__ inv2,
-               const float* __restrict__ valid1, const float* __restrict__ valid2, int chunk,
-               int final_pass, float* __restrict__ out_b1, int* __restrict__ out_i1,
-               float* __restrict__ out_b2) {
+// the body of both main kernels; GUIDED reads the rows' and columns' point
+// records geo1 [B][N1 padded to TN] and geo2 [B][N2 padded to TN]
+template <bool GUIDED>
+__device__ __forceinline__ void top2_u8_body(const CUtensorMap* map1, const CUtensorMap* map2, int N1, int N2,
+                                             const float* __restrict__ inv1, const float* __restrict__ inv2,
+                                             const float* __restrict__ valid1, const float* __restrict__ valid2,
+                                             const float4* __restrict__ geo1, const float4* __restrict__ geo2,
+                                             int chunk, int final_pass, float* __restrict__ out_b1,
+                                             int* __restrict__ out_i1, float* __restrict__ out_b2) {
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
 
@@ -271,6 +326,7 @@ top2_u8_kernel(const __grid_constant__ CUtensorMap map1, const __grid_constant__
   ring.empty = ring.full + 8 * STAGES;
   ring.a_full = ring.empty + 8 * STAGES;
   ring.scale = reinterpret_cast<const float2*>(smem + OFF_SCALE);
+  ring.geo = reinterpret_cast<const float4*>(smem + OFF_GEO);
   int* last_valid = reinterpret_cast<int*>(smem + OFF_LAST);
 
   if (tid == 0) {
@@ -283,7 +339,7 @@ top2_u8_kernel(const __grid_constant__ CUtensorMap map1, const __grid_constant__
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     // the block's rows start loading while its columns are scanned below
     mbar_arrive_expect_tx(ring.a_full, TM * D);
-    tma_load_rows(ring.a, &map1, ring.a_full, row0, pair);
+    tma_load_rows(ring.a, map1, ring.a_full, row0, pair);
   }
   __syncthreads();
 
@@ -336,8 +392,11 @@ top2_u8_kernel(const __grid_constant__ CUtensorMap map1, const __grid_constant__
 #pragma unroll
       for (int k = 0; k < TN / 32; ++k) scale[s * TN + lane + 32 * k] = sc[k];
       if (lane == 0) {
-        mbar_arrive_expect_tx(ring.full + 8 * s, TILE_BYTES);
-        tma_load_rows(ring.b + s * TILE_BYTES, &map2, ring.full + 8 * s, col0, pair);
+        mbar_arrive_expect_tx(ring.full + 8 * s, GUIDED ? TILE_BYTES + GEO_TILE_BYTES : TILE_BYTES);
+        tma_load_rows(ring.b + s * TILE_BYTES, map2, ring.full + 8 * s, col0, pair);
+        if constexpr (GUIDED)
+          bulk_load(smem_u32(smem + OFF_GEO) + s * GEO_TILE_BYTES,
+                    geo2 + (size_t)pair * ((N2 + TN - 1) / TN * TN) + col0, GEO_TILE_BYTES, ring.full + 8 * s);
       } else {
         mbar_arrive(ring.full + 8 * s);
       }
@@ -351,6 +410,12 @@ top2_u8_kernel(const __grid_constant__ CUtensorMap map1, const __grid_constant__
     const float* I = inv1 + (size_t)pair * N1;
     const float inv_lo = r_lo < N1 ? I[r_lo] : 0.f;
     const float inv_hi = r_hi < N1 ? I[r_hi] : 0.f;
+    float4 g_lo = make_float4(0.f, 0.f, 0.f, 0.f), g_hi = g_lo;
+    if constexpr (GUIDED) {
+      const float4* G = geo1 + (size_t)pair * ((N1 + TN - 1) / TN * TN);
+      if (r_lo < N1) g_lo = G[r_lo];
+      if (r_hi < N1) g_hi = G[r_hi];
+    }
     Top2 lo = {-INFINITY, -INFINITY, INT_MAX};
     Top2 hi = lo;
     int acc0[64], acc1[64];
@@ -368,20 +433,20 @@ top2_u8_kernel(const __grid_constant__ CUtensorMap map1, const __grid_constant__
       for (; t + 2 < ntiles; t += 2) {  // acc0 holds tile t; tiles t+1 and t+2 exist
         start_tile(acc1, ring, t + 1, desc_a);
         wgmma_wait<1>();
-        finish_tile(acc0, ring, t, col_begin + t * TN, lane, inv_lo, inv_hi, lo, hi);
+        finish_tile<GUIDED>(acc0, ring, t, col_begin + t * TN, lane, inv_lo, inv_hi, g_lo, g_hi, lo, hi);
         start_tile(acc0, ring, t + 2, desc_a);
         wgmma_wait<1>();
-        finish_tile(acc1, ring, t + 1, col_begin + (t + 1) * TN, lane, inv_lo, inv_hi, lo, hi);
+        finish_tile<GUIDED>(acc1, ring, t + 1, col_begin + (t + 1) * TN, lane, inv_lo, inv_hi, g_lo, g_hi, lo, hi);
       }
       if (t + 1 < ntiles) {
         start_tile(acc1, ring, t + 1, desc_a);
         wgmma_wait<1>();
-        finish_tile(acc0, ring, t, col_begin + t * TN, lane, inv_lo, inv_hi, lo, hi);
+        finish_tile<GUIDED>(acc0, ring, t, col_begin + t * TN, lane, inv_lo, inv_hi, g_lo, g_hi, lo, hi);
         wgmma_wait<0>();
-        finish_tile(acc1, ring, t + 1, col_begin + (t + 1) * TN, lane, inv_lo, inv_hi, lo, hi);
+        finish_tile<GUIDED>(acc1, ring, t + 1, col_begin + (t + 1) * TN, lane, inv_lo, inv_hi, g_lo, g_hi, lo, hi);
       } else {
         wgmma_wait<0>();
-        finish_tile(acc0, ring, t, col_begin + t * TN, lane, inv_lo, inv_hi, lo, hi);
+        finish_tile<GUIDED>(acc0, ring, t, col_begin + t * TN, lane, inv_lo, inv_hi, g_lo, g_hi, lo, hi);
       }
     }
     if (dead_col < col_end) {  // columns without a valid one among them
@@ -424,11 +489,11 @@ top2_u8_kernel(const __grid_constant__ CUtensorMap map1, const __grid_constant__
   }
 }
 
-__global__ void top2_u8_reduce_kernel(const float* __restrict__ part_b1,
-                                      const int* __restrict__ part_i1,
-                                      const float* __restrict__ part_b2, int rows, int splits,
-                                      const float* __restrict__ valid1, float* __restrict__ s1,
-                                      float* __restrict__ s2, int* __restrict__ idx) {
+__device__ __forceinline__ void top2_reduce_body(const float* __restrict__ part_b1,
+                                                 const int* __restrict__ part_i1,
+                                                 const float* __restrict__ part_b2, int rows, int splits,
+                                                 const float* __restrict__ valid1, float* __restrict__ s1,
+                                                 float* __restrict__ s2, int* __restrict__ idx) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= rows) return;
   if (valid1 != nullptr && !(valid1[i] > 0.f)) {  // its row tile may have written nothing
@@ -445,6 +510,44 @@ __global__ void top2_u8_reduce_kernel(const float* __restrict__ part_b1,
   s1[i] = t.b1;
   s2[i] = fmaxf(t.b2, -2.f);
   idx[i] = t.i1;
+}
+
+// the plain kernel and the guided one carry names of their own, so that a
+// trace tells their device time apart
+
+__global__ void __launch_bounds__(THREADS, 1)
+top2_u8_kernel(const __grid_constant__ CUtensorMap map1, const __grid_constant__ CUtensorMap map2,
+               int N1, int N2, const float* __restrict__ inv1, const float* __restrict__ inv2,
+               const float* __restrict__ valid1, const float* __restrict__ valid2, int chunk,
+               int final_pass, float* __restrict__ out_b1, int* __restrict__ out_i1,
+               float* __restrict__ out_b2) {
+  top2_u8_body<false>(&map1, &map2, N1, N2, inv1, inv2, valid1, valid2, nullptr, nullptr, chunk, final_pass,
+                      out_b1, out_i1, out_b2);
+}
+
+__global__ void __launch_bounds__(THREADS, 1)
+guided_top2_kernel(const __grid_constant__ CUtensorMap map1, const __grid_constant__ CUtensorMap map2,
+                   int N1, int N2, const float* __restrict__ inv1, const float* __restrict__ inv2,
+                   const float* __restrict__ valid1, const float* __restrict__ valid2,
+                   const float4* __restrict__ geo1, const float4* __restrict__ geo2, int chunk,
+                   int final_pass, float* __restrict__ out_b1, int* __restrict__ out_i1,
+                   float* __restrict__ out_b2) {
+  top2_u8_body<true>(&map1, &map2, N1, N2, inv1, inv2, valid1, valid2, geo1, geo2, chunk, final_pass, out_b1,
+                     out_i1, out_b2);
+}
+
+__global__ void top2_u8_reduce_kernel(const float* __restrict__ part_b1, const int* __restrict__ part_i1,
+                                      const float* __restrict__ part_b2, int rows, int splits,
+                                      const float* __restrict__ valid1, float* __restrict__ s1,
+                                      float* __restrict__ s2, int* __restrict__ idx) {
+  top2_reduce_body(part_b1, part_i1, part_b2, rows, splits, valid1, s1, s2, idx);
+}
+
+__global__ void guided_merge_kernel(const float* __restrict__ part_b1, const int* __restrict__ part_i1,
+                                    const float* __restrict__ part_b2, int rows, int splits,
+                                    const float* __restrict__ valid1, float* __restrict__ s1,
+                                    float* __restrict__ s2, int* __restrict__ idx) {
+  top2_reduce_body(part_b1, part_i1, part_b2, rows, splits, valid1, s1, s2, idx);
 }
 
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -474,6 +577,49 @@ int encode_rows_map(CUtensorMap* map, const uint8_t* base, int N, int B) {
   return res == CUDA_SUCCESS ? 0 : 1000 + static_cast<int>(res);
 }
 
+// both launches of one variant: the main kernel over (row tiles, column
+// splits, pairs) and, with more than one split, the merge of the splits
+template <bool GUIDED>
+int launch(const uint8_t* d1, int N1, const uint8_t* d2, int N2, const float* inv1, const float* inv2,
+           const float* valid1, const float* valid2, const float4* geo1, const float4* geo2, int B, int chunk,
+           int splits, float* part_b1, int* part_i1, float* part_b2, float* s1, float* s2, int* idx,
+           void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  CUtensorMap map1, map2;
+  int rc = encode_rows_map(&map1, d1, N1, B);
+  if (rc != 0) return rc;
+  rc = encode_rows_map(&map2, d2, N2, B);
+  if (rc != 0) return rc;
+  const int smem = GUIDED ? SMEM_BYTES_GUIDED : SMEM_BYTES;
+  cudaError_t err;
+  if constexpr (GUIDED)
+    err = cudaFuncSetAttribute(guided_top2_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  else
+    err = cudaFuncSetAttribute(top2_u8_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((N1 + TM - 1) / TM, splits, B);
+  const int final_pass = splits == 1;
+  float* b1 = final_pass ? s1 : part_b1;
+  int* i1 = final_pass ? idx : part_i1;
+  float* b2 = final_pass ? s2 : part_b2;
+  if constexpr (GUIDED)
+    guided_top2_kernel<<<grid, THREADS, smem, s>>>(map1, map2, N1, N2, inv1, inv2, valid1, valid2, geo1, geo2,
+                                                   chunk, final_pass, b1, i1, b2);
+  else
+    top2_u8_kernel<<<grid, THREADS, smem, s>>>(map1, map2, N1, N2, inv1, inv2, valid1, valid2, chunk,
+                                               final_pass, b1, i1, b2);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || final_pass) return static_cast<int>(err);
+  const int rows = B * N1;
+  if constexpr (GUIDED)
+    guided_merge_kernel<<<(rows + 255) / 256, 256, 0, s>>>(part_b1, part_i1, part_b2, rows, splits, valid1, s1,
+                                                           s2, idx);
+  else
+    top2_u8_reduce_kernel<<<(rows + 255) / 256, 256, 0, s>>>(part_b1, part_i1, part_b2, rows, splits, valid1,
+                                                             s1, s2, idx);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 static_assert(TM == TN, "one box shape serves both tensor maps");
@@ -489,27 +635,19 @@ extern "C" int match_top2_u8_launch(const uint8_t* d1, int N1, const uint8_t* d2
                                     const float* valid2, int B, int chunk, int splits,
                                     float* part_b1, int* part_i1, float* part_b2, float* s1,
                                     float* s2, int* idx, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  CUtensorMap map1, map2;
-  int rc = encode_rows_map(&map1, d1, N1, B);
-  if (rc != 0) return rc;
-  rc = encode_rows_map(&map2, d2, N2, B);
-  if (rc != 0) return rc;
-  cudaError_t err = cudaFuncSetAttribute(top2_u8_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         SMEM_BYTES);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((N1 + TM - 1) / TM, splits, B);
-  if (splits == 1) {
-    top2_u8_kernel<<<grid, THREADS, SMEM_BYTES, s>>>(map1, map2, N1, N2, inv1, inv2, valid1, valid2,
-                                                     chunk, 1, s1, idx, s2);
-    return static_cast<int>(cudaGetLastError());
-  }
-  top2_u8_kernel<<<grid, THREADS, SMEM_BYTES, s>>>(map1, map2, N1, N2, inv1, inv2, valid1, valid2,
-                                                   chunk, 0, part_b1, part_i1, part_b2);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int rows = B * N1;
-  top2_u8_reduce_kernel<<<(rows + 255) / 256, 256, 0, s>>>(part_b1, part_i1, part_b2, rows, splits,
-                                                           valid1, s1, s2, idx);
-  return static_cast<int>(cudaGetLastError());
+  return launch<false>(d1, N1, d2, N2, inv1, inv2, valid1, valid2, nullptr, nullptr, B, chunk, splits, part_b1,
+                       part_i1, part_b2, s1, s2, idx, stream);
+}
+
+// the guided variant: geo1 [B][N1 rounded up to a multiple of the tile] and
+// geo2 [B][N2 rounded up] point records (see the top of this file), 16-byte
+// aligned
+extern "C" int match_guided_u8_launch(const uint8_t* d1, int N1, const uint8_t* d2, int N2,
+                                      const float* inv1, const float* inv2, const float* valid1,
+                                      const float* valid2, const float* geo1, const float* geo2, int B,
+                                      int chunk, int splits, float* part_b1, int* part_i1, float* part_b2,
+                                      float* s1, float* s2, int* idx, void* stream) {
+  return launch<true>(d1, N1, d2, N2, inv1, inv2, valid1, valid2, reinterpret_cast<const float4*>(geo1),
+                      reinterpret_cast<const float4*>(geo2), B, chunk, splits, part_b1, part_i1, part_b2, s1,
+                      s2, idx, stream);
 }

@@ -13,8 +13,8 @@ src/feature/matching.{h,cc}, the matcher controller family):
     shared worker matches descriptors (uint8 as the database holds them,
     through the hand-written tensor-core top-2 kernel K1 on a CUDA device),
     verifies two-view geometry with the batched E/F/H LO-RANSAC banks,
-    optionally re-matches guided by F, and writes `matches` and
-    `two_view_geometries`.
+    optionally re-matches guided by F (K1's guided variant, batched over the
+    chunk), and writes `matches` and `two_view_geometries`.
 
 Matchers: exhaustive, sequential (with retrieval loop detection),
 spatial, transitive, vocab-tree (VLAD retrieval, ops/retrieval.py, with
@@ -245,7 +245,10 @@ class _MatchWorker:
       -> match  (device: one batched top-2 bank over the chunk + one fetch)
       -> assemble (host: match extraction, E/F/H item build)
       -> verify (device: one batched E/F/H + pose bank + one fetch)
-      -> classify (host) -> SQLite writes (caller thread, in order).
+      -> classify (host)
+      [-> guided (device, with guided_matching: the pairs with an F and
+          enough inliers re-matched under F's epipolar mask, one fetch)]
+      -> SQLite writes (caller thread, in order).
     Chunks run on a 2-thread pool, so one chunk's host stages overlap the
     other's device work (the reference's matcher/verifier worker pool,
     feature/matching.h:222-345, as pipeline stages around batched device
@@ -257,7 +260,6 @@ class _MatchWorker:
         self.device = device_mod.resolve(device)
         self._host_cache: dict[int, tuple[np.ndarray, np.ndarray, np.ndarray, int]] = {}
         self._dev_cache: dict[int, tuple[torch.Tensor, torch.Tensor]] = {}
-        self._float_cache: dict[int, torch.Tensor] = {}
         self._dev_lock = threading.Lock()
         self.cameras = db.cameras()
         self.images = db.images()
@@ -300,17 +302,6 @@ class _MatchWorker:
                 self._dev_cache[image_id] = feats
         return feats
 
-    def _feats_float(self, image_id: int, d_u8: np.ndarray) -> torch.Tensor:
-        """Device-resident normalized f32 descriptors for the float route
-        (`match_pair`), normalized once per image. Caller thread only."""
-        d = self._float_cache.get(image_id)
-        if d is None:
-            d = matching_ops.normalize_descriptors(self._feats_dev(image_id, d_u8)[0])
-            if len(self._float_cache) > 200:
-                self._float_cache.pop(next(iter(self._float_cache)))
-            self._float_cache[image_id] = d
-        return d
-
     def _mopts(self) -> matching_ops.MatchingOptions:
         return matching_ops.MatchingOptions(
             max_ratio=self.cfg.max_ratio,
@@ -349,11 +340,11 @@ class _MatchWorker:
                     vs.append(np.pad(f[2], (0, cap - f[2].shape[0])))
             dev = self.device
             (d1s, n1s, v1s), (d2s, n2s, v2s) = sides
-            idx, ok, sim = matching_ops.match_descriptors_u8(
-                torch.stack(d1s), torch.stack(d2s), torch.stack(n1s), torch.stack(n2s),
-                torch.as_tensor(np.stack(v1s), device=dev), torch.as_tensor(np.stack(v2s), device=dev),
-                self._mopts(),
-            )
+            bank = (torch.stack(d1s), torch.stack(d2s), torch.stack(n1s), torch.stack(n2s),
+                    torch.as_tensor(np.stack(v1s), device=dev), torch.as_tensor(np.stack(v2s), device=dev))
+            if self.cfg.guided_matching:  # the guided stage re-reads the chunk's bank
+                prep["bank"] = bank
+            idx, ok, sim = matching_ops.match_descriptors_u8(*bank, self._mopts())
             return idx.cpu().numpy(), ok.cpu().numpy(), sim.cpu().numpy()
 
     def _assemble_pure(self, prep, fetched):
@@ -414,10 +405,54 @@ class _MatchWorker:
                     n_ok += 1
             return geom_writes, n_ok
 
+    def _dev_guided(self, prep, geom_writes):
+        """Device (pool thread): the guided re-match of the chunk's pairs
+        that have an F and at least min_num_inliers inliers, as one bank:
+        their descriptors re-read from the chunk's bank, the candidates
+        restricted to F's epipolar band (`matching.match_guided_u8`), one
+        fetch. Guided matches replace a pair's inliers where there are more
+        of them (the per-pair rule of the JAX package's matcher). Returns
+        geom_writes with those pairs replaced."""
+        todo = [k for k, (_, _, inliers, g) in enumerate(geom_writes)
+                if g.F is not None and len(inliers) >= self.cfg.min_num_inliers]
+        if not todo:
+            return geom_writes
+        with PHASES.phase("match.guided"):
+            dev, cap = self.device, prep["cap"]
+            chunk_index = {tuple(pair): b for b, pair in enumerate(prep["pairs"])}
+            members = [chunk_index[geom_writes[k][:2]] for k in todo]
+            uv = np.zeros((2, len(todo), cap, 2), np.float32)
+            for n, b in enumerate(members):
+                for side in (0, 1):
+                    kp = prep["hfeats"][b][side][0]
+                    uv[side, n, : kp.shape[0]] = kp[:, :2]
+            Fs = np.stack([geom_writes[k][3].F for k in todo]).astype(np.float64)
+            sel = torch.as_tensor(members, device=dev)
+            bank = [x.index_select(0, sel) for x in prep["bank"]]
+            uv_t = torch.as_tensor(uv, device=dev)
+            idx, ok = matching_ops.match_guided_u8(*bank, uv_t[0], uv_t[1], torch.as_tensor(Fs, device=dev),
+                                                   self._mopts())
+            picked = torch.where(ok, idx, torch.full_like(idx, -1)).cpu().numpy()
+            out = list(geom_writes)
+            replaced = 0
+            for n, k in enumerate(todo):
+                id1, id2, inliers, g = out[k]
+                grow = np.nonzero(picked[n] >= 0)[0]
+                if len(grow) > len(inliers):
+                    out[k] = (id1, id2, np.stack([grow, picked[n][grow]], axis=-1).astype(np.int32), g)
+                    replaced += 1
+            sizes = [(prep["hfeats"][b][0][3], prep["hfeats"][b][1][3]) for b in members]
+            PHASES.count("guided_pairs", len(todo))
+            PHASES.count("guided_kernel_pairs", len(todo) if dev.type == "cuda" else 0)
+            PHASES.count("guided_sims", int(sum(n1 * n2 for n1, n2 in sizes)))
+            PHASES.count("guided_points", int(sum(n1 + n2 for n1, n2 in sizes)))
+            PHASES.count("guided_replaced", replaced)
+            return out
+
     def _process_chunk(self, prep):
-        """One chunk through match -> assemble -> verify -> classify; touches
-        no SQLite. Returns (match_writes, geom_writes, n_ok) for the caller
-        to flush in submission order."""
+        """One chunk through match -> assemble -> verify -> classify (->
+        guided); touches no SQLite. Returns (match_writes, geom_writes, n_ok)
+        for the caller to flush in submission order."""
         if prep["degenerate"]:
             return [(i, j, np.zeros((0, 2), np.uint32)) for i, j in prep["pairs"]], [], 0
         asm, match_writes = self._assemble_pure(prep, self._dev_match(prep))
@@ -425,13 +460,13 @@ class _MatchWorker:
             return match_writes, [], 0
         vfetched, vctx = self._dev_verify(asm)
         geom_writes, n_ok = self._classify_pure(asm, vctx, vfetched)
+        if self.cfg.guided_matching:
+            geom_writes = self._dev_guided(prep, geom_writes)
         return match_writes, geom_writes, n_ok
 
     def match_pairs(self, pair_list, chunk: int = 16) -> int:
         """Pipelined batched pair matching + verification (see the class
         doc). Returns the number of pairs with a verified geometry."""
-        if self.cfg.guided_matching:
-            return sum(1 if self.match_pair(i, j) else 0 for i, j in pair_list)
         n_ok = 0
 
         def flush(fut):
@@ -457,61 +492,6 @@ class _MatchWorker:
             while window:
                 flush(window.popleft())
         return n_ok
-
-    def match_pair(self, id1: int, id2: int) -> int:
-        """Match + verify (+ guided re-match) + write one pair. Returns the
-        inlier count."""
-        kp1, d1_u8, v1, n1 = self._feats_host(id1)
-        kp2, d2_u8, v2, n2 = self._feats_host(id2)
-        if n1 == 0 or n2 == 0:
-            return 0
-        dev = self.device
-        # the guided re-match masks a float similarity matrix: float route
-        d1, d2 = self._feats_float(id1, d1_u8), self._feats_float(id2, d2_u8)
-        v1t, v2t = torch.as_tensor(v1, device=dev), torch.as_tensor(v2, device=dev)
-        mopts = self._mopts()
-        idx, ok, sim1 = matching_ops.match_descriptors(d1, d2, v1t, v2t, mopts)
-        pairs = matching_ops.matches_to_pairs(idx, ok)
-        if len(pairs) < self.cfg.min_num_inliers:
-            self.db.write_matches(id1, id2, np.zeros((0, 2), np.uint32))
-            return 0
-        self.db.write_matches(id1, id2, pairs)
-
-        cam1 = self.cameras[self.images[id1]["camera_id"]]
-        cam2 = self.cameras[self.images[id2]["camera_id"]]
-        g = two_view_mod.estimate_two_view_geometry(
-            kp1[pairs[:, 0], :2], kp2[pairs[:, 1], :2],
-            np_geom.pad_params(cam1["params"][: cm.NUM_PARAMS[cam1["model_id"]]], cam1["model_id"]),
-            np_geom.pad_params(cam2["params"][: cm.NUM_PARAMS[cam2["model_id"]]], cam2["model_id"]),
-            cam1["model_id"], cam2["model_id"],
-            two_view_mod.TwoViewOptions(
-                max_error=self.cfg.max_error, min_num_inliers=self.cfg.min_num_inliers,
-            ),
-            quality=sim1.cpu().numpy()[pairs[:, 0]],
-            device=dev,
-        )
-        inlier_rows = g.inlier_matches[:, 0] if len(g.inlier_matches) else np.zeros(0, np.int64)
-
-        if self.cfg.guided_matching and g.F is not None and len(inlier_rows) >= self.cfg.min_num_inliers:
-            gi, gok = matching_ops.match_guided(
-                d1, d2,
-                torch.as_tensor(kp1[:, :2], device=dev), torch.as_tensor(kp2[:, :2], device=dev),
-                v1t, v2t, torch.as_tensor(g.F, dtype=torch.float32, device=dev), mopts,
-            )
-            gpairs = matching_ops.matches_to_pairs(gi, gok)
-            if len(gpairs) > len(inlier_rows):
-                self.db.write_two_view_geometry(
-                    id1, id2, gpairs, g.config, F=g.F, E=g.E, H=g.H, qvec=g.qvec, tvec=g.tvec,
-                )
-                self.db.commit()
-                return len(gpairs)
-
-        inliers = pairs[inlier_rows] if len(inlier_rows) else np.zeros((0, 2), np.uint32)
-        self.db.write_two_view_geometry(
-            id1, id2, inliers, g.config, F=g.F, E=g.E, H=g.H, qvec=g.qvec, tvec=g.tvec
-        )
-        self.db.commit()
-        return len(inliers)
 
 
 def run_exhaustive_matcher(

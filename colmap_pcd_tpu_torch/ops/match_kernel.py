@@ -12,6 +12,10 @@ columns counted as -2 and ties going to the lowest column.
     the integer tensor cores; the similarity float(dot) * (inv_row *
     inv_col) is exact in the dot product, so kernel and plain version agree
     to the last bit. The matcher's path.
+  * `match_top2_u8_guided` is the same kernel with the guided matcher's
+    epipolar mask in its epilogue (`point_records`): similarities of pairs
+    farther from each other's epipolar line than the Sampson error allows
+    count as -2. Kernel and plain version agree to the last bit.
   * `match_top2` (csrc/match_top2.cu) takes L2-normalized f32 descriptors
     and forms the products with f32 FMAs in the plain product's order. The
     route for float descriptors. `match_top2_cross` is the same launch
@@ -257,6 +261,8 @@ def load_u8(source: str = SOURCE_U8) -> ctypes.CDLL:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.match_top2_u8_launch.argtypes = [vp, ci, vp, ci, vp, vp, vp, vp, ci, ci, ci] + [vp] * 7
     lib.match_top2_u8_launch.restype = ci
+    lib.match_guided_u8_launch.argtypes = [vp, ci, vp, ci, vp, vp, vp, vp, vp, vp, ci, ci, ci] + [vp] * 7
+    lib.match_guided_u8_launch.restype = ci
     for name in ("match_top2_u8_tile_rows", "match_top2_u8_tile_cols", "match_top2_u8_width"):
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = ci
@@ -365,9 +371,10 @@ def match_top2_u8(d1, d2, inv1, inv2, valid2, valid1=None):
     return out
 
 
-def launch_u8(lib: ctypes.CDLL, d1, d2, inv1, inv2, valid2, valid1=None):
+def launch_u8(lib: ctypes.CDLL, d1, d2, inv1, inv2, valid2, valid1=None, geo=None):
     """One launch of `lib`'s uint8 kernel on checked, batched, non-empty CUDA
-    tensors."""
+    tensors; with `geo` (both sides' point records, `point_records`), its
+    guided variant."""
     dev = d1.device
     if d1.shape[-1] != lib.match_top2_u8_width():
         raise ValueError(f"match_top2_u8: the kernel takes {lib.match_top2_u8_width()}-wide descriptors")
@@ -383,10 +390,14 @@ def launch_u8(lib: ctypes.CDLL, d1, d2, inv1, inv2, valid2, valid1=None):
     blocks = B * -(-N1 // lib.match_top2_u8_tile_rows())
     chunk, splits = split_columns(N2, lib.match_top2_u8_tile_cols(), 2 * sm_count(dev) // blocks)
     s1, s2, idx, part = _outputs(dev, B, N1, splits if splits > 1 else 0)
+    masks = (None if valid1 is None else valid1.data_ptr(), valid2.data_ptr())
+    if geo is not None:
+        tile = lib.match_top2_u8_tile_cols()
+        geo = tuple(_padded_records(g, tile) for g in geo)
+        masks += tuple(g.data_ptr() for g in geo)
     with on_device(dev):
-        err = lib.match_top2_u8_launch(
-            d1.data_ptr(), N1, d2.data_ptr(), N2, inv1.data_ptr(), inv2.data_ptr(),
-            None if valid1 is None else valid1.data_ptr(), valid2.data_ptr(), B, chunk, splits,
+        err = (lib.match_top2_u8_launch if geo is None else lib.match_guided_u8_launch)(
+            d1.data_ptr(), N1, d2.data_ptr(), N2, inv1.data_ptr(), inv2.data_ptr(), *masks, B, chunk, splits,
             *part, s1.data_ptr(), s2.data_ptr(), idx.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream,
         )
@@ -397,3 +408,112 @@ def launch_u8(lib: ctypes.CDLL, d1, d2, inv1, inv2, valid2, valid1=None):
 
 match_top2_u8.launches = 0
 match_top2_u8.max_cap = 0
+
+
+# --------------------------------------------------------------------------
+# guided matching: the uint8 kernel with an epipolar mask
+
+
+def point_records(uv1: Tensor, uv2: Tensor, F: Tensor, max_error: float) -> tuple[Tensor, Tensor]:
+    """The guided kernel's f32 point records [..., N, 4] of the keypoints
+    uv1 [..., N1, 2] and uv2 [..., N2, 2] under the fundamental matrix F
+    [..., 3, 3] (x2^T F x1 = 0, pixels): image 1's epipolar lines F x1 =
+    (a, b, c) with n = e^2 (a^2 + b^2), image 2's points (u, v, 1) with
+    n = e^2 ((F^T x2)_0^2 + (F^T x2)_1^2), e = max_error. A pair passes the
+    Sampson test where (a u + b v + c)^2 < n1 + n2. Formed in float64 and
+    rounded once."""
+    F = F.to(torch.float64)
+    x1 = torch.cat([uv1.to(torch.float64), torch.ones_like(uv1[..., :1], dtype=torch.float64)], -1)
+    x2 = torch.cat([uv2.to(torch.float64), torch.ones_like(uv2[..., :1], dtype=torch.float64)], -1)
+    line1 = x1 @ F.mT  # F x1, per row
+    line2 = x2 @ F  # F^T x2, per row
+    e2 = float(max_error) ** 2
+    n1 = e2 * (line1[..., 0] ** 2 + line1[..., 1] ** 2)
+    n2 = e2 * (line2[..., 0] ** 2 + line2[..., 1] ** 2)
+    return (torch.cat([line1, n1[..., None]], -1).to(torch.float32),
+            torch.cat([x2, n2[..., None]], -1).to(torch.float32))
+
+
+def epipolar_mask(geo1: Tensor, geo2: Tensor) -> Tensor:
+    """[..., N1, N2] bool: the Sampson test of every (row, column) pair of
+    point records, each product and sum rounded on its own, as the kernel
+    forms it."""
+    r, c = geo1[..., :, None, :], geo2[..., None, :, :]
+    t = (r[..., 0] * c[..., 0] + r[..., 1] * c[..., 1]) + r[..., 2] * c[..., 2]
+    return t * t < r[..., 3] + c[..., 3]
+
+
+def _padded_records(geo: Tensor, tile: int) -> Tensor:
+    """geo [B, N, 4] f32 with N rounded up to a multiple of `tile`, the rows
+    added passing every test (n = +inf), as the kernel reads them."""
+    geo = geo.to(torch.float32).contiguous()
+    B, N = geo.shape[0], geo.shape[1]
+    if N % tile == 0:
+        return geo
+    out = torch.zeros((B, -(-N // tile) * tile, 4), dtype=torch.float32, device=geo.device)
+    out[:, :, 3] = float("inf")
+    out[:, :N] = geo
+    return out
+
+
+def _check_records(d1, d2, geo1, geo2):
+    if (geo1.shape != d1.shape[:-1] + (4,) or geo2.shape != d2.shape[:-1] + (4,)
+            or geo1.device != d1.device or geo2.device != d1.device):
+        raise ValueError(f"match_top2_u8_guided: point records {tuple(geo1.shape)}, {tuple(geo2.shape)} do not "
+                         f"fit descriptors {tuple(d1.shape)}, {tuple(d2.shape)} on {d1.device}")
+
+
+def match_top2_u8_guided_reference(d1, d2, inv1, inv2, geo1, geo2, valid2, valid1=None):
+    """Plain PyTorch version of `match_top2_u8_guided` on any device: the
+    similarity matrix of `similarity_u8`, -2 where `epipolar_mask` fails,
+    `_best2`; blocked over the pairs. Returns (s1 f32, s2 f32, idx int32)
+    [..., N1]."""
+    _check_u8(d1, d2, inv1, inv2, valid2, valid1)
+    _check_records(d1, d2, geo1, geo2)
+    if d1.dim() == 2:
+        args = (d1, d2, inv1, inv2, geo1, geo2, valid2, valid1)
+        return tuple(x[0] for x in match_top2_u8_guided_reference(*(None if a is None else a[None] for a in args)))
+
+    def block(sl):
+        sim = similarity_u8(d1[sl], d2[sl], inv1[sl], inv2[sl])
+        sim = torch.where(epipolar_mask(geo1[sl], geo2[sl]), sim, torch.full_like(sim, -2.0))
+        s1, s2, idx = _best2(sim, valid2[sl])
+        return s1, s2, idx.to(torch.int32)
+
+    s1, s2, idx = _blocked(d1, d2, block)
+    if valid1 is not None:
+        ok = valid1 > 0
+        s1 = torch.where(ok, s1, torch.full_like(s1, -2.0))
+        s2 = torch.where(ok, s2, torch.full_like(s2, -2.0))
+        idx = torch.where(ok, idx, torch.zeros_like(idx))
+    return s1, s2, idx
+
+
+def match_top2_u8_guided(d1, d2, inv1, inv2, geo1, geo2, valid2, valid1=None):
+    """`match_top2_u8` with the similarities of the pairs that fail the
+    Sampson test of their point records geo1 [B?, N1, 4] and geo2
+    [B?, N2, 4] (`point_records`; on the transpose, swapped) counted as -2:
+    (s1 f32, s2 f32, idx int32) [..., N1].
+
+    CUDA tensors launch the guided kernel (counted in
+    `match_top2_u8_guided.launches`); CPU tensors take the plain version.
+    Raises on anything else."""
+    _check_u8(d1, d2, inv1, inv2, valid2, valid1)
+    _check_records(d1, d2, geo1, geo2)
+    dev = d1.device
+    if dev.type == "cpu":
+        return match_top2_u8_guided_reference(d1, d2, inv1, inv2, geo1, geo2, valid2, valid1)
+    if dev.type != "cuda":
+        raise ValueError(f"match_top2_u8_guided: unsupported device {dev}")
+    if d1.dim() == 2:
+        args = (d1, d2, inv1, inv2, geo1, geo2, valid2, valid1)
+        return tuple(x[0] for x in match_top2_u8_guided(*(None if a is None else a[None] for a in args)))
+    if d1.shape[0] == 0 or d1.shape[1] == 0:
+        return _outputs(dev, d1.shape[0], d1.shape[1], 0)[:3]
+    out = launch_u8(build_u8(), d1, d2, inv1, inv2, valid2, valid1, geo=(geo1, geo2))
+    with _lock:
+        match_top2_u8_guided.launches += 1
+    return out
+
+
+match_top2_u8_guided.launches = 0

@@ -13,6 +13,8 @@ norms, the matcher's path) run through the hand-written top-2 kernels K1
 the float kernel forms the cross-check's column bests in the same launch as
 the rows; the uint8 kernel runs once for the rows and once on the
 transpose. On CPU tensors they take the plain matmul + `_best2`.
+`match_guided_u8`, the matcher's guided re-match, is the uint8 route with
+the epipolar mask in the kernel's epilogue (`match_top2_u8_guided`).
 """
 
 from __future__ import annotations
@@ -22,7 +24,16 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .match_kernel import _best2, _best_rows, match_top2, match_top2_cross, match_top2_u8, similarity_u8
+from .match_kernel import (
+    _best2,
+    _best_rows,
+    match_top2,
+    match_top2_cross,
+    match_top2_u8,
+    match_top2_u8_guided,
+    point_records,
+    similarity_u8,
+)
 
 Tensor = torch.Tensor
 
@@ -147,6 +158,31 @@ def match_guided(
     sim = torch.where(err < opts.guided_max_error**2, sim, torch.full_like(sim, -2.0))
     s1, s2, idx = _best2(sim, valid2)
     back = _best_rows(sim, valid1) if opts.cross_check else None
+    return idx, _accept(s1, s2, idx, back, valid1, opts) & (s1 > -1.5)
+
+
+def match_guided_u8(
+    d1: Tensor,  # [..., N1, D] uint8
+    d2: Tensor,  # [..., N2, D] uint8
+    inv1: Tensor,  # [..., N1] f32 inverse norms
+    inv2: Tensor,  # [..., N2]
+    valid1: Tensor,  # [..., N1]
+    valid2: Tensor,  # [..., N2]
+    uv1: Tensor,  # [..., N1, 2] pixel coords
+    uv2: Tensor,  # [..., N2, 2]
+    F: Tensor,  # [..., 3, 3] fundamental matrix (pixel frame)
+    opts: MatchingOptions = MatchingOptions(),
+) -> tuple[Tensor, Tensor]:
+    """match_guided on the uint8 descriptors, batched over pairs: the
+    similarities of pairs whose Sampson error is not below
+    guided_max_error count as -2 (`point_records`), then the ratio, distance
+    and cross-check tests. CUDA tensors launch the guided kernel for the
+    rows and, with cross_check, on the transpose (the same mask, transposed
+    bit for bit); CPU tensors take its plain version."""
+    geo1, geo2 = point_records(uv1, uv2, F, opts.guided_max_error)
+    s1, s2, idx = match_top2_u8_guided(d1, d2, inv1, inv2, geo1, geo2, valid2, valid1)
+    idx = idx.long()
+    back = match_top2_u8_guided(d2, d1, inv2, inv1, geo2, geo1, valid1, valid2)[2] if opts.cross_check else None
     return idx, _accept(s1, s2, idx, back, valid1, opts) & (s1 > -1.5)
 
 

@@ -368,9 +368,10 @@ def _orientation_and_descriptor(G, kx, ky, sigma_rel, opts, lidx, wh):
 
     aff = None
     if opts.estimate_affine_shape:
-        aff = _affine_shape(
-            _lay_out(gxs)[0], _lay_out(gys)[0], kx, ky, sigma_rel, opts, row0, width_k, wh
-        )
+        with PHASES.phase("sift.affine"):
+            aff = _affine_shape(
+                _lay_out(gxs)[0], _lay_out(gys)[0], kx, ky, sigma_rel, opts, row0, width_k, wh
+            )
         del gxs, gys
 
     # ---- orientation: 36-bin histogram over a radius 3*1.5*sigma window ----

@@ -236,6 +236,118 @@ def test_match_kernel_u8_equals_plain_version(cuda_device, B, n1, n2):
     assert int(out[1].sum()) > 0
 
 
+def _epipolar_case(rng, B, n1, n2, device, focal=1000.0, width=1280, height=960):
+    """B pairs of uint8 descriptors whose matches lie on their pair's
+    epipolar lines: (u1, u2, inv1, inv2, uv1, uv2, F [B,3,3] float64), the
+    last rows of d1 copies of its first rows and the last columns of d2 of
+    its first columns (descriptor and keypoint alike)."""
+    K = np.asarray([[focal, 0, width / 2], [0, focal, height / 2], [0, 0, 1]])
+    u1, u2, uv1, uv2, Fs = [], [], [], [], []
+    for _ in range(B):
+        X = np.stack([rng.uniform(-4, 4, n1), rng.uniform(-3, 3, n1), rng.uniform(4, 14, n1)], -1)
+        t = np.asarray([0.8, 0.05, 0.1]) + rng.normal(0, 0.05, 3)
+        x1, x2 = X @ K.T, (X + t) @ K.T
+        shared = min(n1, n2) // 2
+        d1 = _sift_u8(rng, (n1,))
+        d2 = np.concatenate([d1[:shared], _sift_u8(rng, (n2 - shared,))])
+        d2 = np.clip(d2 + rng.normal(0, 6.0, d2.shape), 0, 255).round().astype(np.uint8)
+        p2 = np.concatenate([x2[:shared, :2] / x2[:shared, 2:] + rng.normal(0, 1.0, (shared, 2)),
+                             rng.uniform([0, 0], [width, height], (n2 - shared, 2))])
+        perm = rng.permutation(n2)
+        d2, p2 = d2[perm], p2[perm]
+        p1 = x1[:, :2] / x1[:, 2:]
+        k = min(8, n1 // 4, n2 // 4)
+        d1[n1 - k:], p1[n1 - k:] = d1[:k], p1[:k]
+        d2[n2 - k:], p2[n2 - k:] = d2[:k], p2[:k]
+        tx = np.asarray([[0, -t[2], t[1]], [t[2], 0, -t[0]], [-t[1], t[0], 0]])
+        F = np.linalg.inv(K).T @ tx @ np.linalg.inv(K)
+        u1.append(d1), u2.append(d2), uv1.append(p1), uv2.append(p2), Fs.append(F / np.abs(F).max())
+    u1, u2 = (torch.as_tensor(np.stack(x), device=device) for x in (u1, u2))
+    uv1, uv2 = (torch.as_tensor(np.stack(x), dtype=torch.float32, device=device) for x in (uv1, uv2))
+    return (u1, u2, match_kernel.inverse_norms(u1), match_kernel.inverse_norms(u2), uv1, uv2,
+            torch.as_tensor(np.stack(Fs), device=device))
+
+
+@pytest.mark.parametrize("B,n1,n2", [(16, 2048, 2048), (1, 1000, 1537), (2, 40, 70), (1, 8192, 4100), (3, 64, 300)])
+def test_guided_kernel_equals_plain_version(cuda_device, B, n1, n2):
+    """The guided K1 against its plain version: rows bit for bit (with and
+    without the row mask; ragged valid rows and columns, column splits,
+    duplicated rows and columns), the launch on the transpose equal to the
+    argmax over the plain masked matrix's rows (the cross-check's column
+    bests) on every valid column, and match_guided_u8's decisions on the
+    card equal to its plain route on the CPU."""
+    rng = np.random.default_rng(3 * n1 + n2)
+    u1, u2, inv1, inv2, uv1, uv2, F = _epipolar_case(rng, B, n1, n2, cuda_device)
+    v1 = torch.zeros((B, n1), device=cuda_device)
+    v2 = torch.zeros((B, n2), device=cuda_device)
+    for b in range(B):
+        v1[b, : rng.integers(n1 // 2, n1 + 1)] = 1.0
+        v2[b, : rng.integers(n2 // 2, n2 + 1)] = 1.0
+    v2[0, 3] = 0.0
+    g1, g2 = match_kernel.point_records(uv1, uv2, F, 4.0)
+    before = match_kernel.match_top2_u8_guided.launches
+    s1, s2, idx = match_kernel.match_top2_u8_guided(u1, u2, inv1, inv2, g1, g2, v2, v1)
+    torch.cuda.synchronize()
+    assert match_kernel.match_top2_u8_guided.launches == before + 1
+    r1, r2, ridx = match_kernel.match_top2_u8_guided_reference(u1, u2, inv1, inv2, g1, g2, v2, v1)
+    assert torch.equal(s1, r1) and torch.equal(s2, r2) and torch.equal(idx, ridx)
+    s1, s2, idx = match_kernel.match_top2_u8_guided(u1, u2, inv1, inv2, g1, g2, v2)
+    r1, r2, ridx = match_kernel.match_top2_u8_guided_reference(u1, u2, inv1, inv2, g1, g2, v2)
+    assert torch.equal(s1, r1) and torch.equal(s2, r2) and torch.equal(idx, ridx)
+    # the guided mask removes candidates the unguided kernel keeps
+    assert bool((s1 < match_kernel.match_top2_u8(u1, u2, inv1, inv2, v2)[0]).any())
+    back = match_kernel.match_top2_u8_guided(u2, u1, inv2, inv1, g2, g1, v1, v2)[2]
+    sim = match_kernel.similarity_u8(u1, u2, inv1, inv2)
+    sim = torch.where(match_kernel.epipolar_mask(g1, g2), sim, torch.full_like(sim, -2.0))
+    cols = v2 > 0
+    assert torch.equal(back.long()[cols], match_kernel._best_rows(sim, v1)[cols])
+    del sim
+    opts = matching.MatchingOptions()
+    card = matching.match_guided_u8(u1, u2, inv1, inv2, v1, v2, uv1, uv2, F, opts)
+    host = matching.match_guided_u8(*(x.cpu() for x in (u1, u2, inv1, inv2, v1, v2, uv1, uv2, F)), opts)
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(card, host))
+    assert int(card[1].sum()) > 0
+
+
+def test_guided_chunk_memory_at_the_cap(cuda_device):
+    """A guided chunk at the matcher's size (16 pairs at cap 8192) holds
+    under 1 GiB of the card above its inputs: no [N1, N2] matrix."""
+    rng = np.random.default_rng(8192)
+    u1, u2, inv1, inv2, uv1, uv2, F = _epipolar_case(rng, 16, 8192, 8192, cuda_device)
+    v1, v2 = torch.ones((16, 8192), device=cuda_device), torch.ones((16, 8192), device=cuda_device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    idx, ok = matching.match_guided_u8(u1, u2, inv1, inv2, v1, v2, uv1, uv2, F, matching.MatchingOptions())
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated() - base < 2**30
+    assert int(ok.sum()) > 16 * 1000
+
+
+def test_guided_sequential_matcher_on_gpu_goes_through_the_kernel(cuda_device, tmp_path):
+    """`sequential_matcher --SiftMatching.guided_matching 1` on the GPU keeps
+    the batched path and re-matches every verified pair through the guided
+    K1 (engagement 1: guided_kernel_pairs = guided_pairs), with precise
+    matches."""
+    from colmap_pcd_tpu_torch import cli
+    from colmap_pcd_tpu_torch.utils.logging_utils import PHASES
+    from synthetic_torch import make_descriptor_world, match_precision_recall, write_world
+
+    rec, graph, lmap, gt, desc, point_ids = make_descriptor_world(
+        np.random.default_rng(5), n_images=6, n_points=420
+    )
+    paths = write_world(rec, graph, lmap, gt, str(tmp_path), descriptors=desc)
+    before = match_kernel.match_top2_u8_guided.launches
+    PHASES.counts.clear()
+    assert cli.main(["sequential_matcher", "--database_path", paths["database"],
+                     "--SiftMatching.guided_matching", "1"]) == 0
+    assert match_kernel.match_top2_u8_guided.launches > before
+    assert PHASES.counts["guided_pairs"] > 0
+    assert PHASES.counts["guided_kernel_pairs"] == PHASES.counts["guided_pairs"]
+    pr = match_precision_recall(paths["database"], point_ids)
+    assert pr["pairs_verified"] > 0 and pr["precision"] > 0.99, pr
+
+
 def test_match_kernel_u8_exactness_properties(cuda_device):
     """On the card: the launch on the transpose forms bit-identical
     similarities; duplicated columns resolve to the lowest; whole tiles of

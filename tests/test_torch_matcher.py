@@ -143,10 +143,10 @@ def test_matches_importer(tmp_path, match_type):
     assert min(verified.values()) > 100
 
 
-def test_guided_matching_takes_the_per_pair_path(tmp_path):
-    """guided_matching=True matches pair by pair and re-matches guided by
-    F, as in the JAX package: the same pairs verify as on the batched path,
-    with at least as many inliers."""
+def test_guided_matching_takes_the_batched_path(tmp_path):
+    """guided_matching=True keeps the batched chunk pipeline and re-matches
+    the verified pairs guided by F, with the JAX package's replacement rule:
+    the same pairs verify as without it, with at least as many inliers."""
     paths, _, point_ids = _world(tmp_path, 6, 4, 300)
     db_guided = str(tmp_path / "guided.db")
     shutil.copy(paths["database"], db_guided)
@@ -183,7 +183,8 @@ def test_initial_pair_verification_matches_jax(relaxed):
 def test_batched_matcher_takes_the_uint8_path(tmp_path, monkeypatch):
     """The chunked matcher hands the database's uint8 descriptors and their
     inverse norms to match_descriptors_u8 (on a GPU: the tensor-core kernel)
-    and never normalizes to float; guided matching keeps the float route."""
+    and never normalizes to float; with guided matching too, whose re-match
+    takes the uint8 descriptors of the same bank."""
     from colmap_pcd_tpu_torch.ops import matching as matching_ops
 
     paths, _, point_ids = _world(tmp_path, 8, 4, 300)
@@ -211,4 +212,4 @@ def test_batched_matcher_takes_the_uint8_path(tmp_path, monkeypatch):
     assert synthetic_torch.match_precision_recall(paths["database"], point_ids)["precision"] > 0.99
     guided = MatchingConfigT(guided_matching=True)
     assert pipeline_t.run_sequential_matcher(db_guided, guided, overlap=2, device="cpu") == 5
-    assert calls == {"u8": 1, "float": 5}
+    assert calls == {"u8": 2, "float": 0}
